@@ -43,16 +43,25 @@ def g_planes_from_numpy(G, n: int, *, g_dtype=None, device="cuda"):
 
 def preconditioner_from_numpy(G_re, G_im, TF, hf_cs, hf_cn, a_cs, a_cn,
                               b: int, d2_replace: bool, n: int, *,
-                              g_dtype=None,
+                              g_dtype=None, g_w=None, g_lo=None,
+                              g_stride: int = 0,
                               device="cuda") -> SweepingPreconditioner:
     """A SweepingPreconditioner from numpy state: real G planes in either
     layout `g_planes_from_numpy` takes, and complex TF (b, n, n), hf_cs,
-    hf_cn (b, n), a_cs, a_cn (L, n)."""
+    hf_cn (b, n), a_cs, a_cn (L, n).  For a sample-compressed stack
+    (g_stride > 0) also the lerp tables g_w (M, 2) and g_lo (M,), stored as
+    float32 and int32."""
     dev = resolve_device(device)
+    tables = {}
+    if g_stride:
+        tables = dict(
+            g_w=torch.from_numpy(np.array(g_w, np.float32)).to(dev),
+            g_lo=torch.from_numpy(np.array(g_lo, np.int32)).to(dev),
+            g_stride=int(g_stride))
     return SweepingPreconditioner(
         G_re=g_planes_from_numpy(G_re, n, g_dtype=g_dtype, device=dev),
         G_im=g_planes_from_numpy(G_im, n, g_dtype=g_dtype, device=dev),
         TF=_complex_tensor(TF, dev),
         hf_cs=_complex_tensor(hf_cs, dev), hf_cn=_complex_tensor(hf_cn, dev),
         a_cs=_complex_tensor(a_cs, dev), a_cn=_complex_tensor(a_cn, dev),
-        b=b, d2_replace=d2_replace)
+        b=b, d2_replace=d2_replace, **tables)

@@ -35,8 +35,8 @@ _SIGNATURES = {
     "hh_stencil_matvec": [_P, _P, _P, _P, _P, _P, _P,
                           ctypes.c_int, ctypes.c_int, _P],
     "hh_sweep": [ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_longlong,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
-                 _P],
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P],
 }
 
 

@@ -30,6 +30,7 @@ contract; the pad columns are zero.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -125,6 +126,36 @@ def sample_positions(M: int, R: int) -> np.ndarray:
     sample."""
     Ms = (M - 1) // R + 2
     return np.minimum(np.arange(Ms) * R, M - 1)
+
+
+def band_sample_window(M: int, R: int, k_first: int, k_last: int):
+    """Inclusive sample index window (s0, s1) bracketing sweep rows
+    k_first..k_last of a stride-R compressed stack whose samples are
+    `sample_positions(M, R)`: every row k in the band has its bracketing
+    pair (lo, lo+1) inside [s0, s1]."""
+    Ms = (M - 1) // R + 2
+    s0 = min(k_first // R, Ms - 2)
+    s1 = min(k_last // R, Ms - 2) + 1
+    return s0, s1
+
+
+def compress_tables(M: int, R: int):
+    """Per-row (g_w, g_lo) lerp tables, as numpy arrays, for a stride-R
+    compressed G stack: row k applies
+    g_w[k,0] * S[g_lo[k]] + g_w[k,1] * S[g_lo[k]+1] over the
+    `sample_positions(M, R)` sample stack.  Static given (M, R): anchor
+    stacks factored at DIFFERENT frequencies share the same tables, which is
+    what makes the omega-lerp of sample panels well-defined
+    (driver.run_multisolve frequency amortization).  The weights are
+    float32 whatever the working precision, as in the reference package."""
+    pos = sample_positions(M, R)
+    Ms = pos.shape[0]
+    k = np.arange(M)
+    lo = np.minimum(k // R, Ms - 2)
+    denom = np.maximum(pos[lo + 1] - pos[lo], 1)
+    t = (k - pos[lo]) / denom
+    g_w = np.stack([1.0 - t, t], axis=1).astype(np.float32)
+    return g_w, lo.astype(np.int32)
 
 
 def _clamped_chunk(setup_chunk: int, n: int) -> int:
@@ -247,6 +278,21 @@ def _block_thomas_solve(T, cs, cn, rhs):
     return u
 
 
+def _block_thomas_solve_multi(T, cs, cn, rhs):
+    """`_block_thomas_solve` for a batch: rhs (B, L, n) -> (B, L, n).  Every
+    layer step is one (n, n) @ (n, B) product for the whole batch."""
+    L = T.shape[0]
+    y = torch.empty_like(rhs)
+    y[:, 0] = rhs[:, 0]
+    for l in range(1, L):
+        y[:, l] = rhs[:, l] - cs[l] * (T[l - 1] @ y[:, l - 1].T).T
+    u = torch.empty_like(rhs)
+    u[:, L - 1] = (T[L - 1] @ y[:, L - 1].T).T
+    for l in range(L - 2, -1, -1):
+        u[:, l] = (T[l] @ (y[:, l] - cn[l] * u[:, l + 1]).T).T
+    return u
+
+
 @dataclasses.dataclass(frozen=True)
 class SweepingPreconditioner:
     """Factored state of the moving-PML sweeping preconditioner.
@@ -258,8 +304,12 @@ class SweepingPreconditioner:
     TF   : (b, n, n) complex: block-Thomas Schur-inverse stack for H_F.
     hf_* : H_F interlayer couplings; a_*: the global operator's interlayer
            couplings (rows of A.cs / A.cn).
-    g_w, g_lo, g_stride : reserved for sample-compressed G, which is not
-           ported yet; g_stride must be 0.
+    g_w, g_lo, g_stride : sample-compressed G.  g_stride > 0 means the
+           planes hold only the `sample_positions(n-b, g_stride)` corner
+           inverses and sweep row k applies
+           g_w[k,0] * G[g_lo[k]] + g_w[k,1] * G[g_lo[k]+1]
+           (g_w (n-b, 2) float32, g_lo (n-b,) int32, on the planes' device).
+           g_stride == 0: dense (or shared) planes, no tables.
     """
 
     G_re: torch.Tensor
@@ -276,9 +326,18 @@ class SweepingPreconditioner:
     g_stride: int = 0
 
     def __post_init__(self):
-        if self.g_stride != 0:
-            raise NotImplementedError(
-                "sample-compressed G (g_stride > 0) is not ported yet")
+        if bool(self.g_stride) != (self.g_lo is not None) \
+                or (self.g_lo is None) != (self.g_w is None):
+            raise ValueError("g_stride > 0 goes with both lerp tables, "
+                             "g_stride == 0 with neither")
+        if self.g_stride:
+            # the sweep kernel reads panels g_lo and g_lo + 1 unchecked
+            lo_min, lo_max = self.g_lo.min().item(), self.g_lo.max().item()
+            if lo_min < 0 or lo_max > self.G_re.shape[0] - 2:
+                raise ValueError(
+                    f"g_lo runs over {lo_min}..{lo_max}; a stack of "
+                    f"{self.G_re.shape[0]} samples takes 0.."
+                    f"{self.G_re.shape[0] - 2}")
 
     @property
     def grid_shape(self):
@@ -288,6 +347,14 @@ class SweepingPreconditioner:
         """LinearOperator-style matvec on a flat (N,) vector."""
         L, n = self.grid_shape
         return apply_preconditioner(self, x.reshape(L, n)).reshape(-1)
+
+    def apply_multi(self, X: torch.Tensor) -> torch.Tensor:
+        """The same for a batch of flat vectors, (B, N) -> (B, N): the whole
+        batch rides one stream of G per sweep."""
+        L, n = self.grid_shape
+        B = X.shape[0]
+        return apply_preconditioner_multi(
+            self, X.reshape(B, L, n)).reshape(B, L * n)
 
 
 @torch.no_grad()
@@ -312,24 +379,67 @@ def setup_preconditioner(A: Stencil5, hm: Stencil5, b: int, *,
     iteration counts are unchanged at the reference scales.  The Schur
     recursion itself always runs at the working precision: only storage is
     rounded.
+
+    `g_compress=True` (with factor_stride > 1) stores ONLY the sampled
+    corner inverses plus per-step lerp weights instead of expanding the
+    interpolation to the dense stack: at-rest factor memory drops
+    ~factor_stride-fold, and the sweep kernel combines the two bracketing
+    sample panels' products per step.  The interpolated operator is the
+    same as the expanded strided stack's up to the float32 rounding of the
+    weights.
     """
     dev = resolve_device(device)
     if A.device.type != dev.type or hm.device.type != dev.type:
         raise ValueError(f"A is on {A.device}, hm on {hm.device}, but "
                          f"device={device!r}")
-    if g_compress:
-        raise NotImplementedError(
-            "g_compress (sample-compressed G) is not ported yet")
     g_dtype = g_dtype or hm.cc.real.dtype
+    M = hm.cc.shape[0]
+    if g_compress and factor_stride > 1 and M > factor_stride:
+        ks = torch.as_tensor(sample_positions(M, factor_stride),
+                             device=hm.cc.device)
+        G_re, G_im = factor_corner_inverses(hm.map(lambda f: f[ks]),
+                                            g_dtype=g_dtype,
+                                            setup_chunk=setup_chunk)
+        return preconditioner_from_samples(
+            A, b, G_re, G_im, g_stride=factor_stride,
+            hf_full_coupling=hf_full_coupling, d2_replace=d2_replace)
     G_re, G_im = factor_corner_inverses(hm, g_dtype=g_dtype,
                                         setup_chunk=setup_chunk,
                                         stride=factor_stride)
+    return _with_hf(A, b, G_re, G_im, hf_full_coupling=hf_full_coupling,
+                    d2_replace=d2_replace)
+
+
+def _with_hf(A: Stencil5, b: int, G_re, G_im, *, hf_full_coupling,
+             d2_replace, **tables) -> SweepingPreconditioner:
+    """Factor H_F and join it with an already factored G stack."""
     HF = fd_stencil.extract_hf_stencil(A, b, full_coupling=hf_full_coupling)
     TF = _schur_t_stack(HF)
     return SweepingPreconditioner(
         G_re=G_re, G_im=G_im, TF=TF, hf_cs=HF.cs, hf_cn=HF.cn,
         a_cs=A.cs.contiguous(), a_cn=A.cn.contiguous(), b=b,
-        d2_replace=d2_replace)
+        d2_replace=d2_replace, **tables)
+
+
+@torch.no_grad()
+def preconditioner_from_samples(A: Stencil5, b: int, G_re, G_im, *,
+                                g_stride: int,
+                                hf_full_coupling: bool = True,
+                                d2_replace: bool = True
+                                ) -> SweepingPreconditioner:
+    """Build the full sweeping preconditioner from an ALREADY-FACTORED
+    stride-compressed sample stack (planes (Ms, n, ld), for example the
+    omega-lerp of two anchor frequencies' stacks, driver.run_multisolve)
+    plus the operator A at the target frequency: only H_F is factored here
+    (b small inversions); the O(M/stride) corner-inverse factorizations, the
+    setup giant, are not re-paid."""
+    M = A.cc.shape[0] - b
+    g_w, g_lo = compress_tables(M, g_stride)
+    dev = G_re.device
+    return _with_hf(A, b, G_re, G_im, hf_full_coupling=hf_full_coupling,
+                    d2_replace=d2_replace,
+                    g_w=torch.from_numpy(g_w).to(dev),
+                    g_lo=torch.from_numpy(g_lo).to(dev), g_stride=g_stride)
 
 
 @torch.no_grad()
@@ -352,7 +462,8 @@ def apply_preconditioner(P: SweepingPreconditioner, f: torch.Tensor,
     """
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown impl {impl!r}")
-    run = sweep if impl == "auto" else plain_sweep
+    run = functools.partial(sweep if impl == "auto" else plain_sweep,
+                            g_lo=P.g_lo, g_w=P.g_w)
     b = P.b
     L, n = P.grid_shape
     M_total = L - b                # number of sweep rows
@@ -380,3 +491,45 @@ def apply_preconditioner(P: SweepingPreconditioner, f: torch.Tensor,
     rhs[b - 1] = P.a_cn[b - 1] * u_bwd[0]
     uF = TFuF - _block_thomas_solve(P.TF, P.hf_cs, P.hf_cn, rhs)
     return torch.cat([uF, u_bwd], dim=0)
+
+
+@torch.no_grad()
+def apply_preconditioner_multi(P: SweepingPreconditioner, F: torch.Tensor,
+                               impl: str = "auto") -> torch.Tensor:
+    """Batched-RHS apply: F of shape (B, L, n) -> (B, L, n), F untouched.
+
+    The whole batch rides ONE stream of the G stack per sweep (the sweep
+    kernel multiplies each loaded piece of G into every right-hand side), so
+    B solves cost about one solve of device-memory traffic; the block-Thomas
+    solves become (n, n) @ (n, B) products.  `impl` as in
+    `apply_preconditioner`.
+    """
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"unknown impl {impl!r}")
+    run = functools.partial(sweep if impl == "auto" else plain_sweep,
+                            g_lo=P.g_lo, g_w=P.g_w)
+    b = P.b
+    L, n = P.grid_shape
+    M_total = L - b
+    # the sweeps take (S, B, n): steps outermost
+    to_sbn = lambda x: x.transpose(0, 1).contiguous()
+    u = F.clone()
+
+    TFuF = _block_thomas_solve_multi(P.TF, P.hf_cs, P.hf_cn, u[:, :b])
+    u[:, b] -= P.a_cs[b] * TFuF[:, b - 1]
+
+    cn_top_zeroed = torch.cat(
+        [P.a_cn[b:-1], torch.zeros_like(P.a_cn[-1:])], dim=0)
+
+    if M_total > 1:
+        u_fwd = run(P.G_re, P.G_im, to_sbn(u[:, b + 1:]), P.a_cs[b + 1:],
+                    u[:, b].contiguous(), mode="fwd")
+        u[:, b + 1:] = u_fwd.transpose(0, 1)
+    u_bwd = run(P.G_re, P.G_im, to_sbn(u[:, b:]), cn_top_zeroed,
+                torch.zeros_like(u[:, -1]),
+                mode="bwd" if P.d2_replace else "bwd_sub").transpose(0, 1)
+
+    rhs = torch.zeros_like(TFuF)
+    rhs[:, b - 1] = P.a_cn[b - 1] * u_bwd[:, 0]
+    uF = TFuF - _block_thomas_solve_multi(P.TF, P.hf_cs, P.hf_cn, rhs)
+    return torch.cat([uF, u_bwd], dim=1)

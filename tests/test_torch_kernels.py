@@ -21,8 +21,9 @@ from helmholtz_tpu_torch.ops.kernels import spmv_stencil as k1
 from helmholtz_tpu_torch.ops.kernels import sweep as k2
 from helmholtz_tpu_torch.precond import sweeping as tsweep
 
-from torch_parity import (both_problems, precond_to_torch, random_grid,
-                          stencil_to_torch, to_np)
+from torch_parity import (both_problems, precond_to_torch,  # noqa: F401
+                          random_grid, single_thread, stencil_to_torch,
+                          to_np)
 
 N, B, WAVE, CONST = 17, 4, 1.0, 20.0
 
@@ -172,9 +173,9 @@ def test_g_pitch_keeps_rows_16_byte_aligned():
 def test_wrappers_raise_on_what_is_not_ported(factored):
     _, _, _, P_t = factored
     u, c, carry0 = (torch.from_numpy(a) for a in _sweep_inputs("bwd"))
-    with pytest.raises(NotImplementedError, match="R > 1"):
+    with pytest.raises(ValueError, match="carry0"):
         k2.sweep(P_t.G_re, P_t.G_im, u[:, None, :].expand(-1, 2, -1), c,
-                 carry0[None].expand(2, -1), mode="bwd")
+                 carry0, mode="bwd")
     with pytest.raises(NotImplementedError, match="tridiagonal"):
         k2.sweep(P_t.G_re, P_t.G_im, u, c[:, None, :].expand(-1, 3, -1),
                  carry0, mode="bwd")
@@ -185,12 +186,8 @@ def test_wrappers_raise_on_what_is_not_ported(factored):
     with pytest.raises(ValueError, match="planes"):
         k2.sweep(P_t.G_re[:, :, :N], P_t.G_im[:, :, :N], u, c, carry0,
                  mode="bwd")
-    with pytest.raises(NotImplementedError, match="g_stride"):
-        dataclasses.replace(P_t, g_stride=4)
-    with pytest.raises(NotImplementedError, match="g_compress"):
-        _, _, _, tprob, thm = both_problems(N, B, WAVE, CONST)
-        tsweep.setup_preconditioner(tprob.A, thm, B, g_compress=True,
-                                    factor_stride=2, device="cpu")
+    with pytest.raises(ValueError, match="g_stride"):
+        dataclasses.replace(P_t, g_stride=4)        # tables are missing
 
 
 def test_cuda_argument_checks_raise_on_wrong_dtype(factored):

@@ -18,8 +18,9 @@ from helmholtz_tpu_torch import driver as tdriver
 from helmholtz_tpu_torch.ops.kernels.sweep import g_ld
 from helmholtz_tpu_torch.precond import sweeping as tsweep
 
-from torch_parity import (both_problems, precond_to_torch, random_grid,
-                          stencil_to_torch, to_np)
+from torch_parity import (both_problems, precond_to_torch,  # noqa: F401
+                          random_grid, single_thread, stencil_to_torch,
+                          to_np)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 N, B, WAVE, CONST = 31, 6, 2.0, 20.0
@@ -247,8 +248,9 @@ def test_run_solver_oracle_n127():
 
 
 def test_run_solver_options():
-    """Strided bf16 setup, the as-shipped variants, refinement, no
-    preconditioner; and the options of later slices raise by name."""
+    """Strided bf16 setup, compressed G, the as-shipped variants,
+    refinement, no preconditioner; and the options of later slices raise by
+    name."""
     base = tdriver.run_solver(N, B, WAVE, CONST, device="cpu")
     strided = tdriver.run_solver(N, B, WAVE, CONST, factor_stride=3,
                                  g_dtype="bf16", device="cpu")
@@ -264,13 +266,19 @@ def test_run_solver_options():
     plain = tdriver.run_solver(15, 4, 1.0, 20.0, precond="none", maxiter=400,
                                restart=40, rtol=1e-6, device="cpu")
     assert plain.converged and plain.true_residual < 1e-5
-    for kw, name in ((dict(precision="ir-df32"), "precision"),
-                     (dict(method="bicgstab"), "solver-extras"),
+    packed = tdriver.run_solver(N, B, WAVE, CONST, factor_stride=4,
+                                g_compress=True, device="cpu")
+    expanded = tdriver.run_solver(N, B, WAVE, CONST, factor_stride=4,
+                                  device="cpu")
+    assert packed.converged and packed.config["g_compress"]
+    assert packed.iterations == expanded.iterations
+    for kw, name in ((dict(method="bicgstab"), "solver-extras"),
                      (dict(stencil="9pt"), "5-point"),
-                     (dict(precond="exact"), "moving_pml"),
-                     (dict(g_compress=True, factor_stride=2), "g_compress")):
+                     (dict(precond="exact"), "moving_pml")):
         with pytest.raises(NotImplementedError, match=name):
             tdriver.run_solver(15, 4, 1.0, 20.0, device="cpu", **kw)
+    with pytest.raises(ValueError, match="precision"):
+        tdriver.run_solver(15, 4, 1.0, 20.0, device="cpu", precision="f64")
     assert tdriver.auto_factor_stride(1023, "c1_f1", "cuda") == 7
     assert tdriver.auto_factor_stride(4095, "c1_f1", "cuda") == 8
     assert tdriver.auto_factor_stride(1023, "c1_f1", "cpu") == 1

@@ -2,6 +2,7 @@
 packages on the CPU in complex128 and move state between them as numpy."""
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import helmholtz_tpu as hj
@@ -11,6 +12,18 @@ from helmholtz_tpu_torch import convert
 from helmholtz_tpu_torch.fd import stencil as tstencil
 
 FIELDS = ("cc", "cw", "ce", "cs", "cn")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """The grids here are tiny; one thread keeps the port's side from
+    competing with parallel test workers for cores.  A test module takes
+    this fixture by importing it, and the old setting comes back when the
+    module is done."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def to_np(x):
@@ -63,13 +76,15 @@ def stencil_to_torch(j_stencil):
 def precond_to_torch(P, n, *, g_dtype=None):
     """The port's SweepingPreconditioner (CPU) from a JAX-factored one; a
     reduced-precision G is passed through float32, which holds every
-    bfloat16 value exactly."""
+    bfloat16 value exactly.  A sample-compressed stack keeps its tables."""
     g = lambda a: np.asarray(jnp.asarray(a, jnp.float32)
                              if a.dtype == jnp.bfloat16 else a)
     return convert.preconditioner_from_numpy(
         g(P.G.re), g(P.G.im), P.TF.to_np(), P.hf_cs.to_np(),
         P.hf_cn.to_np(), P.a_cs.to_np(), P.a_cn.to_np(), P.b, P.d2_replace,
-        n, g_dtype=g_dtype, device="cpu")
+        n, g_dtype=g_dtype, device="cpu",
+        **(dict(g_w=np.asarray(P.g_w), g_lo=np.asarray(P.g_lo),
+                g_stride=P.g_stride) if P.g_stride else {}))
 
 
 def random_grid(seed, shape, dtype=np.complex128):
