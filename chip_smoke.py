@@ -16,6 +16,17 @@ complex64):
   precision   run_solver at rtol 1e-6 with precision="ir-df32" and one
               preconditioner refinement;
 
+then the 9-point scheme (stencil="9pt", b = 74, C = 60; the sweeps take
+the kernel's tridiagonal-coupling variants, the operator product is plain
+tensor code):
+
+  solve9_small  run_solver at n = 511, the one 9-point size with a known
+                count at this shape;
+  solve9        run_solver at n = 1023, rtol 1e-3;
+  multisolve9   run_multisolve, three frequencies x four sources, compressed
+                G, an anchor factorization every second frequency;
+  precision9    run_solver at n = 511, rtol 1e-6, precision="ir-df32";
+
 and checks by launch counts, set to zero before each path and read after it,
 that each path went through its kernel variants.  Any failed phase ends the
 script with a non-zero exit code; it needs a CUDA device and exits with code
@@ -25,6 +36,7 @@ Every phase prints one JSON line.  The last three lines are the kernel
 table, the card's name and power limit, and the verdict.
 """
 import argparse
+import itertools
 import json
 import math
 import os
@@ -41,7 +53,7 @@ from helmholtz_tpu_torch.ops import spmv as plain_spmv
 from helmholtz_tpu_torch.ops.kernels import build
 from helmholtz_tpu_torch.ops.kernels import spmv_stencil as k1
 from helmholtz_tpu_torch.ops.kernels import sweep as k2
-from helmholtz_tpu_torch.precond import sweeping
+from helmholtz_tpu_torch.precond import sweeping, sweeping9
 
 # Published peaks of one H100 SXM at its full power limit: device memory
 # rate and the float32 rate outside the tensor cores (both kernels do
@@ -53,6 +65,10 @@ FULL = dict(n=1023, b=12, wave_num=128.0, const=100.0, problem="c1_f1",
             rtol=1e-3, restart=20, maxiter=60, g_dtype="bf16")
 SMALL = dict(n=127, b=12, wave_num=16.0, const=81.0, problem="c1_f1",
              rtol=1e-3, g_dtype="f32", factor_stride=1)
+# The 9-point path at full width: the reference package's measured
+# configuration (its bench's `ninepoint` block; b ~ n / 14, C = 60).
+NINE = dict(n=1023, b=74, wave_num=128.0, const=60.0, problem="c1_f1",
+            stencil="9pt", rtol=1e-3, restart=20, maxiter=60, g_dtype="bf16")
 ORACLE_ITERS_FULL = 5       # complex128 scipy oracle, ORACLE.json
 ORACLE_ITERS_SMALL = 2
 
@@ -71,6 +87,20 @@ PRECISE = dict(n=1023, b=12, wave_num=128.0, const=100.0, problem="c1_f1",
                g_dtype="bf16", maxiter=60)
 MAX_ITERS_PRECISE = 9       # oracle + 1
 LERP_STRIDE = 7             # the auto stride at n = 1023
+
+# The 9-point paths.  n = 511 is the one size with a complex128 oracle count
+# at this shape (ORACLE.json, oracle9_iters_n511_*: 4 at rtol 1e-3, 6 at
+# 1e-6); at n = 1023 the reference package's own run took 4 iterations
+# (BENCH_r05.json, ninepoint) and its batched runs 4-5 (NINEPOINT.jsonl).
+NINE_SMALL = dict(NINE, n=511, b=37, wave_num=64.0)
+NINE_PRECISE = dict(NINE_SMALL, rtol=1e-6, precision="ir-df32",
+                    precond_refine=1)
+NINE_MULTI = dict(wave_nums=[128.0, 127.5, 127.0], consts=[60.0],
+                  n_sources=4, rtol=1e-3, stencil="9pt", g_dtype="bf16",
+                  factor_stride=7, g_compress=True, freq_anchor_every=2)
+MAX_ITERS_NINE = 5            # oracle / reference count + 1
+MAX_ITERS_NINE_PRECISE = 7    # oracle + 1
+APPLY9 = dict(n=255, b=19, wave_num=32.0, const=60.0)   # oracle9_iters_n255
 
 # Tolerances, relative to the largest entry of the plain version's result;
 # both were tightened to about ten times what the H100 showed.
@@ -174,11 +204,16 @@ def check_k1(A, gen, flush, timed):
 
 # -- K2 -----------------------------------------------------------------------
 
-def sweep_inputs(n, S, R, gen, dev):
-    """u (S, n) or (S, R, n), c (S, n) with its top row zero, carry0."""
+def sweep_inputs(n, S, R, gen, dev, tri=False):
+    """u (S, n) or (S, R, n), c with its top row zero, carry0.  c is (S, n),
+    or with `tri` the (S, 3, n) rows [sub, diag, sup] of a tridiagonal
+    coupling of about the same norm, with random NON-ZERO values left in
+    sub[:, 0] and sup[:, n-1]: the slots that assembly zeroes and that
+    neither the kernel nor the plain version may read."""
     shape = (S, n) if R is None else (S, R, n)
     u = randc(shape, gen, dev)
-    c = randc((S, n), gen, dev)
+    c = (randc((S, 3, n), gen, dev) / math.sqrt(3.0) if tri
+         else randc((S, n), gen, dev))
     c[-1] = 0
     return u, c, randc(shape[1:], gen, dev)
 
@@ -202,17 +237,18 @@ def lerp_tables(M, stride, dev):
     return torch.from_numpy(g_lo).to(dev), torch.from_numpy(g_w).to(dev)
 
 
-def variant_name(mode, bf16, shared=False, lerp=False, R=None):
+def variant_name(mode, bf16, shared=False, lerp=False, R=None, tri=False):
     return (f"sweep_{mode}[{'bf16' if bf16 else 'f32'}"
             f"{',shared' if shared else ''}{',lerp' if lerp else ''}"
-            f"{f',R{R}' if R else ''}]")
+            f"{',tri' if tri else ''}{f',R{R}' if R else ''}]")
 
 
 def check_k2(G_re, G_im, mode, gen, timed, rows=None, library_step=False,
-             R=None, tables=None):
+             R=None, tables=None, tri=False):
     """One sweep over `rows` grid rows (default: one per panel, or one per
     entry of the lerp tables) through the kernel and through the plain loop,
-    for R right-hand sides (None: the unbatched call)."""
+    for R right-hand sides (None: the unbatched call), with diagonal or
+    (`tri`) tridiagonal coupling."""
     Mg, n, _ = G_re.shape
     dev = G_re.device
     lerp = tables is not None
@@ -222,7 +258,7 @@ def check_k2(G_re, G_im, mode, gen, timed, rows=None, library_step=False,
     kw = dict(mode=mode)
     if lerp:
         kw.update(g_lo=tables[0], g_w=tables[1])
-    u, c, carry0 = sweep_inputs(n, S, R, gen, dev)
+    u, c, carry0 = sweep_inputs(n, S, R, gen, dev, tri)
     got = k2.sweep(G_re, G_im, u, c, carry0, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -230,7 +266,8 @@ def check_k2(G_re, G_im, mode, gen, timed, rows=None, library_step=False,
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err, rel = rel_err(got, ref)
-    name = variant_name(mode, G_re.dtype == torch.bfloat16, shared, lerp, R)
+    name = variant_name(mode, G_re.dtype == torch.bfloat16, shared, lerp, R,
+                        tri)
     if not (rel <= K2_TOL and math.isfinite(rel)):
         fail(f"{name} n={n}: relative error {rel:.3e} > {K2_TOL}")
     rec = {"name": name, "n": n, "steps": S, "max_abs_err": err,
@@ -239,15 +276,18 @@ def check_k2(G_re, G_im, mode, gen, timed, rows=None, library_step=False,
         width = R or 1
         panel_bytes = n * n * 2 * G_re.element_size()
         # every input read once, the output written once: u and out per
-        # right-hand side, c, carry0; of G the panels this sweep uses (all
-        # samples of a compressed stack, each ONCE)
-        vec_bytes = ((2 * width + 1) * S + width) * n * 8
+        # right-hand side, c (one row a step, or three), carry0; of G the
+        # panels this sweep uses (all samples of a compressed stack, each
+        # ONCE)
+        c_rows = 3 if tri else 1
+        vec_bytes = ((2 * width + c_rows) * S + width) * n * 8
         panels = Mg if lerp else 1 if shared else S
         table_bytes = 12 * S if lerp else 0
         # the function of a lerp step is (w0 G[lo] + w1 G[lo+1]) @ V: the
         # two panels combined once (3 operations an entry of each plane)
         # and ONE product, whatever arithmetic the kernel chooses
-        flops = (8 * width + (6 if lerp else 0)) * n * n * S
+        flops = ((8 * width + (6 if lerp else 0)) * n * n
+                 + (24 * width * n if tri else 0)) * S
         rec["bound_ms"], rec["bound_by"] = bound(
             panels * panel_bytes + vec_bytes + table_bytes, flops)
         if lerp:
@@ -285,8 +325,9 @@ def check_k2(G_re, G_im, mode, gen, timed, rows=None, library_step=False,
 
 # -- solves -------------------------------------------------------------------
 
-def variant_key(mode, width, lerp):
-    return f"{mode},R{width}{',lerp' if lerp else ''}"
+def variant_key(mode, width, lerp, tri=False):
+    return (f"{mode},R{width}{',lerp' if lerp else ''}"
+            f"{',tri' if tri else ''}")
 
 
 def counted(fn):
@@ -297,7 +338,7 @@ def counted(fn):
     torch.cuda.reset_peak_memory_stats()
     out = fn()
     torch.cuda.synchronize()
-    # the wrapper counts sweeps by (mode, width, lerp); its totals by mode,
+    # the wrapper counts sweeps by (mode, width, lerp, tri); its totals by mode,
     # by width and with lerp tables are sums over that one count
     counts = {"stencil_matvec": k1.launches, "sweep": k2.launches, **{
                   f"sweep_{m}": c for m, c in k2.launches_by_mode.items()},
@@ -316,7 +357,7 @@ def counted_solve(cfg):
            if k not in ("n", "b", "wave_num", "const")}))
 
 
-def batched_launches(iteration_lists, lerp, restart=20):
+def batched_launches(iteration_lists, lerp, restart=20, tri=False):
     """Launches that the lockstep batched GMRES makes for these per-source
     iteration counts, one list per frequency, when every source converges
     inside its first restart cycle: an apply of the whole batch for M b; at
@@ -328,7 +369,7 @@ def batched_launches(iteration_lists, lerp, restart=20):
 
     def apply(width):
         for mode in ("fwd", "bwd"):
-            key = variant_key(mode, width, lerp)
+            key = variant_key(mode, width, lerp, tri)
             variants[key] = variants.get(key, 0) + 1
 
     for its in iteration_lists:
@@ -345,7 +386,10 @@ def batched_launches(iteration_lists, lerp, restart=20):
     return products, variants
 
 
-def check_multisolve(name, cfg, recs, counts, peak, lerp, modes=None):
+def check_multisolve(name, cfg, recs, counts, peak, lerp, modes=None,
+                     tri=False):
+    """`tri`: a 9-point sweep, whose operator products launch no kernel and
+    whose sweeps take the tridiagonal-coupling variants."""
     say(name, records=[{k: r[k] for k in (
             "wave_num", "const", "iterations", "converged", "true_residuals",
             "init_time_s", "solve_time_s", "g_bytes_at_rest",
@@ -368,7 +412,10 @@ def check_multisolve(name, cfg, recs, counts, peak, lerp, modes=None):
                  f"{MAX_ITERS_BATCHED}")
         if bool(r["g_compress"]) != lerp:
             fail(f"{what}: g_compress is {r['g_compress']}")
-    want_k1, want_k2 = batched_launches([r["iterations"] for r in recs], lerp)
+    want_k1, want_k2 = batched_launches([r["iterations"] for r in recs], lerp,
+                                        tri=tri)
+    if tri:
+        want_k1 = 0
     if counts["stencil_matvec"] != want_k1:
         fail(f"{name}: {counts['stencil_matvec']} stencil launches, "
              f"{want_k1} implied by the iteration lists")
@@ -378,12 +425,15 @@ def check_multisolve(name, cfg, recs, counts, peak, lerp, modes=None):
     if counts["sweep_lerp"] != (counts["sweep"] if lerp else 0):
         fail(f"{name}: {counts['sweep_lerp']} of {counts['sweep']} sweeps "
              "went through the lerp kernel")
-    top = variant_key("bwd", cfg["n_sources"], lerp)
+    top = variant_key("bwd", cfg["n_sources"], lerp, tri)
     if counts["sweep_variants"].get(top, 0) < 2:
         fail(f"{name}: the sweeps did not go through {top}")
 
 
-def check_solve(name, cfg, rep, counts, peak, max_iters, exact_iters=None):
+def check_solve(name, cfg, rep, counts, peak, max_iters, exact_iters=None,
+                residual_below=1e-3, applies_per_call=1):
+    """`applies_per_call`: 2 when the preconditioner is refined once."""
+    tri = cfg.get("stencil") == "9pt"
     restart = cfg.get("restart", 20)
     cycles = max(1, -(-rep.iterations // restart))
     # x0 = 0: one apply for M b, one apply and one product per inner
@@ -402,20 +452,35 @@ def check_solve(name, cfg, rep, counts, peak, max_iters, exact_iters=None):
         fail(f"{name}: {rep.iterations} iterations, expected {exact_iters}")
     if rep.iterations > max_iters:
         fail(f"{name}: {rep.iterations} iterations > {max_iters}")
-    if not rep.true_residual < 1e-3:
-        fail(f"{name}: true residual {rep.true_residual:.3e} >= 1e-3")
+    if not rep.true_residual < residual_below:
+        fail(f"{name}: true residual {rep.true_residual:.3e} >= "
+             f"{residual_below}")
     if not (np.isfinite(rep.u).all()
             and rep.u.shape == (cfg["n"], cfg["n"])):
         fail(f"{name}: solution not finite or of the wrong shape")
-    if counts["stencil_matvec"] != want_k1:
-        fail(f"{name}: {counts['stencil_matvec']} stencil launches, "
-             f"{want_k1} implied by {rep.iterations} iterations")
-    for mode in ("fwd", "bwd"):
-        if counts[f"sweep_{mode}"] != want_apply:
-            fail(f"{name}: {counts[f'sweep_{mode}']} {mode} sweeps, "
-                 f"{want_apply} implied by {rep.iterations} iterations")
+    if cfg.get("precision") == "ir-df32":
+        # the refinement loop restarts the inner solve; its launches are
+        # bounded below, not counted exactly
+        for mode in ("fwd", "bwd"):
+            key = variant_key(mode, 1, False, tri)
+            if counts["sweep_variants"].get(key, 0) < \
+                    applies_per_call * rep.iterations:
+                fail(f"{name}: sweep launches {counts['sweep_variants']}")
+    else:
+        # the 9-point operator product is plain tensor code: no launches
+        if counts["stencil_matvec"] != (0 if tri else want_k1):
+            fail(f"{name}: {counts['stencil_matvec']} stencil launches, "
+                 f"{rep.iterations} iterations")
+        for mode in ("fwd", "bwd"):
+            if counts[f"sweep_{mode}"] != want_apply:
+                fail(f"{name}: {counts[f'sweep_{mode}']} {mode} sweeps, "
+                     f"{want_apply} implied by {rep.iterations} iterations")
     if counts["sweep_bwd_sub"] != 0:
         fail(f"{name}: the corrected solve ran bwd_sub sweeps")
+    wrong = [k for k in counts["sweep_variants"]
+             if k.endswith(",tri") != tri]
+    if wrong or counts["sweep_lerp"]:
+        fail(f"{name}: sweeps through {counts['sweep_variants']}")
 
 
 def main():
@@ -494,6 +559,15 @@ def main():
     for R in (2, 3):
         for mode in ("fwd", "bwd"):
             keep(check_k2(*G16, mode, gen, timed=True, R=R))
+    # K2 with tridiagonal coupling at the 9-point path's depth (b = 74: 949
+    # sweep rows): every mode x type at R = 1 and R = 4
+    Mg9 = n - NINE["b"]
+    for planes in (G32, G16):
+        for R in (None, 4):
+            for mode in k2.MODES:
+                keep(check_k2(*(g[:Mg9] for g in planes), mode, gen,
+                              timed=True, R=R, tri=True,
+                              library_step=(mode == "bwd")))
     del G32, G16, shared
     torch.cuda.empty_cache()
 
@@ -511,7 +585,14 @@ def main():
     for R in (2, 3):
         for mode in ("fwd", "bwd"):
             keep(check_k2(*S16, mode, gen, timed=True, R=R, tables=tables))
-    del S32, S16
+    # tridiagonal coupling over bf16 samples (137 for 949 sweep rows)
+    tables9 = lerp_tables(Mg9, LERP_STRIDE, dev)
+    S9 = [g[:int(tables9[0].max()) + 2] for g in S16]
+    for R in (None, 4, 2, 3):
+        for mode in (k2.MODES if R in (None, 4) else ("fwd", "bwd")):
+            keep(check_k2(*S9, mode, gen, timed=True, R=R, tables=tables9,
+                          tri=True))
+    del S32, S16, S9
     torch.cuda.empty_cache()
 
     # every mode x type x kind of stack again at n = 33, for one, for an odd
@@ -519,16 +600,17 @@ def main():
     G32s = random_g(33 - 6, 33, gen, dev)
     tables_s = lerp_tables(33 - 6, 4, dev)
     S32s = random_g(int(tables_s[0].max()) + 2, 33, gen, dev)
-    for R in (None, 3, 5):
+    # ... each with diagonal and with tridiagonal coupling
+    for R, tri in itertools.product((None, 3, 5), (False, True)):
         for planes in (G32s, [g.to(torch.bfloat16) for g in G32s],
                        [g[:1].contiguous() for g in G32s]):
             for mode in k2.MODES:
                 say("kernel", **check_k2(*planes, mode, gen, timed=False,
-                                         rows=33 - 6, R=R))
+                                         rows=33 - 6, R=R, tri=tri))
         for planes in (S32s, [g.to(torch.bfloat16) for g in S32s]):
             for mode in k2.MODES:
                 say("kernel", **check_k2(*planes, mode, gen, timed=False,
-                                         R=R, tables=tables_s))
+                                         R=R, tables=tables_s, tri=tri))
 
     # a real factored G at n = 255: the kernel apply against the plain apply
     cfg_255 = ht.HelmholtzConfig(n=255, b=12, wave_num=32.0, const=62.0)
@@ -549,6 +631,39 @@ def main():
             if not rel <= K2_TOL:
                 fail(f"apply n=255 {g_dtype} d2={d2}: {rel:.3e} > {K2_TOL}")
     del prob, hm, P
+    torch.cuda.empty_cache()
+
+    # the same for a real factored 9-point preconditioner
+    c9 = ht.HelmholtzConfig(n=APPLY9["n"], b=APPLY9["b"],
+                            wave_num=APPLY9["wave_num"],
+                            const=APPLY9["const"])
+    prob = ht.assemble_problem(c9)
+    nine_args = (c9.n, c9.b, c9.const, c9.eta, c9.omega, c9.h, prob.c_full)
+    nine_kw = dict(fidelity="corrected", complex_dtype=torch.complex64)
+    A9 = fd_stencil.build_a_stencil9(*nine_args, **nine_kw)
+    hm9 = fd_stencil.build_hm_stencils9(*nine_args, **nine_kw)
+    for g_dtype in (torch.float32, torch.bfloat16):
+        for d2 in (True, False):
+            P = sweeping9.setup_preconditioner9(A9, hm9, c9.b,
+                                                g_dtype=g_dtype,
+                                                d2_replace=d2)
+            k2.reset_counts()
+            got = sweeping9.apply_preconditioner9(P, prob.f_grid)
+            ref = sweeping9.apply_preconditioner9(P, prob.f_grid,
+                                                  impl="plain")
+            err, rel = rel_err(got, ref)
+            say("apply9", n=c9.n, b=c9.b, g_dtype=str(g_dtype),
+                d2_replace=d2, max_abs_err=err, rel_err=rel, tol=K2_TOL,
+                launches={variant_key(*k): c for k, c
+                          in k2.launches_by_variant.items()})
+            if not rel <= K2_TOL:
+                fail(f"apply9 n={c9.n} {g_dtype} d2={d2}: {rel:.3e} > "
+                     f"{K2_TOL}")
+            if sorted(k2.launches_by_variant) != sorted(
+                    [("fwd", 1, False, True),
+                     ("bwd" if d2 else "bwd_sub", 1, False, True)]):
+                fail(f"apply9: launches {k2.launches_by_variant}")
+    del prob, A9, hm9, P
     torch.cuda.empty_cache()
 
     if args.kernels_only:
@@ -587,22 +702,33 @@ def main():
     # the tight tolerance: refinement in complex128 around the complex64
     # solve, and one refinement step of the preconditioner
     rep, counts, peak = counted_solve(PRECISE)
-    say("precision", iterations=rep.iterations, converged=rep.converged,
-        true_residual=rep.true_residual, residual_norm=rep.residual_norm,
-        init_time_s=rep.init_time, solve_time_s=rep.solve_time,
-        peak_memory_bytes=peak, launches=counts,
-        history=[float(h) for h in rep.history])
-    if not rep.converged:
-        fail("precision: not converged")
-    if rep.iterations > MAX_ITERS_PRECISE:
-        fail(f"precision: {rep.iterations} iterations > {MAX_ITERS_PRECISE}")
-    if not rep.true_residual < 1e-5:
-        fail(f"precision: true residual {rep.true_residual:.3e} >= 1e-5")
-    if counts["sweep_variants"].get(variant_key("bwd", 1, False), 0) < \
-            2 * rep.iterations or counts["sweep_lerp"]:
-        fail(f"precision: sweep launches {counts['sweep_variants']}")
+    check_solve("precision", PRECISE, rep, counts, peak,
+                max_iters=MAX_ITERS_PRECISE, residual_below=1e-5,
+                applies_per_call=2)
     paths["precision"] = counts
     record["precision"] = rep.metrics()
+
+    # the 9-point scheme: the size with an oracle count, then full width
+    for name, cfg, limit, kw in (
+            ("solve9_small", NINE_SMALL, MAX_ITERS_NINE, {}),
+            ("solve9", NINE, MAX_ITERS_NINE, {}),
+            ("precision9", NINE_PRECISE, MAX_ITERS_NINE_PRECISE,
+             dict(residual_below=1e-5, applies_per_call=2))):
+        rep, counts, peak = counted_solve(cfg)
+        check_solve(name, cfg, rep, counts, peak, max_iters=limit, **kw)
+        paths[name] = counts
+        record[name] = rep.metrics()
+        record[f"{name}_peak_bytes"] = peak
+    cfg = NINE_MULTI
+    kw = {k: v for k, v in cfg.items() if k != "wave_nums"}
+    recs, counts, peak = counted(lambda: ht.run_multisolve(
+        n, NINE["b"], cfg["wave_nums"], **kw))
+    # ascending omega: 127.0 and 128.0 are the anchors, 127.5 lies between
+    check_multisolve("multisolve9", cfg, recs, counts, peak, True,
+                     ["factor", "omega_lerp", "factor"], tri=True)
+    paths["multisolve9"] = counts
+    record["multisolve9"] = recs
+    record["multisolve9_peak_bytes"] = peak
 
     # the kernel table: every kernel variant that a full-width path
     # launched (all with bf16 G and the corrected backward step), with the
@@ -620,15 +746,16 @@ def main():
         **{k: rec_k1[k] for k in keys}}]
     launched = {(key, path): c for path, cs in paths.items()
                 for key, c in cs["sweep_variants"].items()}
-    for lerp in (False, True):
+    for tri, lerp in itertools.product((False, True), (False, True)):
         for width in range(1, k2.MAX_WIDTH + 1):
             for mode in ("fwd", "bwd"):
-                key = variant_key(mode, width, lerp)
+                key = variant_key(mode, width, lerp, tri)
                 by_path = {p: c for (k, p), c in launched.items() if k == key}
                 if not by_path:
                     continue
                 R = None if width == 1 else width   # width 1: unbatched
-                v = by_name[variant_name(mode, True, lerp=lerp, R=R)]
+                v = by_name[variant_name(mode, True, lerp=lerp, R=R,
+                                         tri=tri)]
                 table.append({
                     "name": v["name"], "route": "cuda",
                     "source": "helmholtz_tpu_torch/csrc/sweep.cu",
@@ -650,7 +777,12 @@ def main():
             ("amortized", ["stencil_matvec", "sweep_fwd[bf16,lerp,R4]",
                            "sweep_bwd[bf16,lerp,R4]"]),
             ("precision", ["stencil_matvec", "sweep_fwd[bf16]",
-                           "sweep_bwd[bf16]"])):
+                           "sweep_bwd[bf16]"]),
+            ("solve9_small", ["sweep_fwd[bf16,tri]", "sweep_bwd[bf16,tri]"]),
+            ("solve9", ["sweep_fwd[bf16,tri]", "sweep_bwd[bf16,tri]"]),
+            ("precision9", ["sweep_fwd[bf16,tri]", "sweep_bwd[bf16,tri]"]),
+            ("multisolve9", ["sweep_fwd[bf16,lerp,tri,R4]",
+                             "sweep_bwd[bf16,lerp,tri,R4]"])):
         for name in wanted:
             if names.get(name, {}).get("launches_by_path", {}) \
                     .get(path, 0) < 1:

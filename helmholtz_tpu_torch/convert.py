@@ -11,9 +11,10 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .core.sparse import Stencil5
+from .core.sparse import Stencil5, Stencil9
 from .ops.kernels.sweep import g_ld
 from .precond.sweeping import SweepingPreconditioner
+from .precond.sweeping9 import SweepingPreconditioner9
 
 
 def _complex_tensor(z, dev):
@@ -24,6 +25,15 @@ def stencil5_from_numpy(cc, cw, ce, cs, cn, *, device="cuda") -> Stencil5:
     """A Stencil5 from five complex numpy fields of one shape."""
     dev = resolve_device(device)
     return Stencil5(*(_complex_tensor(f, dev) for f in (cc, cw, ce, cs, cn)))
+
+
+def stencil9_from_numpy(*fields, device="cuda") -> Stencil9:
+    """A Stencil9 from nine complex numpy fields of one shape, in the order
+    cc, cw, ce, cs, cn, csw, cse, cnw, cne."""
+    dev = resolve_device(device)
+    if len(fields) != 9:
+        raise ValueError(f"a Stencil9 has nine fields, got {len(fields)}")
+    return Stencil9(*(_complex_tensor(f, dev) for f in fields))
 
 
 def g_planes_from_numpy(G, n: int, *, g_dtype=None, device="cuda"):
@@ -41,6 +51,14 @@ def g_planes_from_numpy(G, n: int, *, g_dtype=None, device="cuda"):
     return out
 
 
+def _tables_from_numpy(g_w, g_lo, g_stride, dev) -> dict:
+    if not g_stride:
+        return {}
+    return dict(g_w=torch.from_numpy(np.array(g_w, np.float32)).to(dev),
+                g_lo=torch.from_numpy(np.array(g_lo, np.int32)).to(dev),
+                g_stride=int(g_stride))
+
+
 def preconditioner_from_numpy(G_re, G_im, TF, hf_cs, hf_cn, a_cs, a_cn,
                               b: int, d2_replace: bool, n: int, *,
                               g_dtype=None, g_w=None, g_lo=None,
@@ -52,12 +70,7 @@ def preconditioner_from_numpy(G_re, G_im, TF, hf_cs, hf_cn, a_cs, a_cn,
     (g_stride > 0) also the lerp tables g_w (M, 2) and g_lo (M,), stored as
     float32 and int32."""
     dev = resolve_device(device)
-    tables = {}
-    if g_stride:
-        tables = dict(
-            g_w=torch.from_numpy(np.array(g_w, np.float32)).to(dev),
-            g_lo=torch.from_numpy(np.array(g_lo, np.int32)).to(dev),
-            g_stride=int(g_stride))
+    tables = _tables_from_numpy(g_w, g_lo, g_stride, dev)
     return SweepingPreconditioner(
         G_re=g_planes_from_numpy(G_re, n, g_dtype=g_dtype, device=dev),
         G_im=g_planes_from_numpy(G_im, n, g_dtype=g_dtype, device=dev),
@@ -65,3 +78,23 @@ def preconditioner_from_numpy(G_re, G_im, TF, hf_cs, hf_cn, a_cs, a_cn,
         hf_cs=_complex_tensor(hf_cs, dev), hf_cn=_complex_tensor(hf_cn, dev),
         a_cs=_complex_tensor(a_cs, dev), a_cn=_complex_tensor(a_cn, dev),
         b=b, d2_replace=d2_replace, **tables)
+
+
+def preconditioner9_from_numpy(G_re, G_im, TF, hf_l, hf_u, a_l, a_u, b: int,
+                               d2_replace: bool, n: int, *, g_dtype=None,
+                               g_w=None, g_lo=None, g_stride: int = 0,
+                               device="cuda") -> SweepingPreconditioner9:
+    """A SweepingPreconditioner9 from numpy state: real G planes in either
+    layout `g_planes_from_numpy` takes, complex TF (b, n, n) (its values
+    already rounded to whatever type stored them), the coupling rows hf_l,
+    hf_u (b, 3, n) and a_l, a_u (L, 3, n) as [sub, diag, sup], and for a
+    sample-compressed stack (g_stride > 0) the lerp tables."""
+    dev = resolve_device(device)
+    return SweepingPreconditioner9(
+        G_re=g_planes_from_numpy(G_re, n, g_dtype=g_dtype, device=dev),
+        G_im=g_planes_from_numpy(G_im, n, g_dtype=g_dtype, device=dev),
+        TF=_complex_tensor(TF, dev),
+        hf_l=_complex_tensor(hf_l, dev), hf_u=_complex_tensor(hf_u, dev),
+        a_l=_complex_tensor(a_l, dev), a_u=_complex_tensor(a_u, dev),
+        b=b, d2_replace=d2_replace,
+        **_tables_from_numpy(g_w, g_lo, g_stride, dev))

@@ -1,3 +1,3 @@
-from .sparse import Stencil5
+from .sparse import Stencil5, Stencil9
 
-__all__ = ["Stencil5"]
+__all__ = ["Stencil5", "Stencil9"]

@@ -1,7 +1,7 @@
-"""Structured operator container: the 5-point stencil as five coefficient
-fields ("DIA by grid geometry").  Counterpart of `Stencil5` in the JAX
-package's `core/sparse.py`; the generic COO/CSR/BSR formats are not ported
-yet.
+"""Structured operator containers: the 5-point stencil as five coefficient
+fields ("DIA by grid geometry") and the 9-point stencil as nine.
+Counterparts of `Stencil5` and `Stencil9` in the JAX package's
+`core/sparse.py`; the generic COO/CSR/BSR formats are not ported yet.
 """
 from __future__ import annotations
 
@@ -93,3 +93,71 @@ class Stencil5:
             [0, -1, 1, -n, n],
             format="csr",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class Stencil9:
+    """9-point stencil operator: Stencil5 plus the four diagonal couplings.
+
+    Fields as in `Stencil5`, and
+      csw : coupling to (j-1, i-1)
+      cse : coupling to (j-1, i+1)
+      cnw : coupling to (j+1, i-1)
+      cne : coupling to (j+1, i+1)
+    Offsets in flat ordering: 0, +-1, +-n, +-(n-1), +-(n+1).
+    """
+
+    cc: torch.Tensor
+    cw: torch.Tensor
+    ce: torch.Tensor
+    cs: torch.Tensor
+    cn: torch.Tensor
+    csw: torch.Tensor
+    cse: torch.Tensor
+    cnw: torch.Tensor
+    cne: torch.Tensor
+
+    #: (dj, di) of each field, in field order
+    OFFSETS = ((0, 0), (0, -1), (0, 1), (-1, 0), (1, 0),
+               (-1, -1), (-1, 1), (1, -1), (1, 1))
+
+    def fields(self):
+        return (self.cc, self.cw, self.ce, self.cs, self.cn,
+                self.csw, self.cse, self.cnw, self.cne)
+
+    def map(self, fn) -> "Stencil9":
+        """A new Stencil9 with `fn` applied to every field."""
+        return Stencil9(*(fn(f) for f in self.fields()))
+
+    @property
+    def grid_shape(self) -> tuple[int, int]:
+        return self.cc.shape[-2], self.cc.shape[-1]
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        N = self.cc.shape[-1] * self.cc.shape[-2]
+        return (N, N)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.cc.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.cc.device
+
+    def to_numpy(self):
+        """The nine fields as host numpy arrays, in field order."""
+        return tuple(f.detach().cpu().numpy() for f in self.fields())
+
+    def todense(self) -> np.ndarray:
+        """Dense (N, N) matrix: host-side test/oracle helper."""
+        L, n = self.grid_shape
+        A = np.zeros((L * n, L * n), dtype=self.to_numpy()[0].dtype)
+        j, i = np.divmod(np.arange(L * n), n)
+        for f, (dj, di) in zip(self.to_numpy(), self.OFFSETS):
+            ok = ((j + dj >= 0) & (j + dj < L) & (i + di >= 0)
+                  & (i + di < n))
+            k = np.flatnonzero(ok)
+            A[k, k + dj * n + di] = f.reshape(-1)[k]
+        return A

@@ -2,13 +2,16 @@
 // stack G, for sm_90a.
 //
 // Replaces the TPU kernel `_kernel` of helmholtz_tpu/ops/pallas/sweep.py
-// (wrapper `pallas_sweep`), in the modes the 5-point solves run:
+// (wrapper `pallas_sweep`), in all its modes:
 //   fwd     : out[k] = u[k] - c[k] * (G[k] @ prev),  prev = carry0 | out[k-1]
 //   bwd     : out[j] = G[j] @ (u[j] - c[j] * next),  next = carry0 | out[j+1]
 //   bwd_sub : out[j] = u[j] - G[j] @ (u[j] + c[j] * next)
-// with diagonal coupling c shared by R right-hand sides (R = 1..4 per
-// launch), G stored as two real planes (re, im) in float32 or bfloat16, and
-// G given in one of three ways:
+// with the coupling c shared by R right-hand sides (R = 1..4 per launch), G
+// stored as two real planes (re, im) in float32 or bfloat16, c given as
+//   diagonal    : c[k] a row of n, applied element-wise (5-point scheme), or
+//   tridiagonal : c[k] three rows [sub, diag, sup] of n (9-point scheme),
+//                 (c[k] v)[i] = sub[i] v[i-1] + diag[i] v[i] + sup[i] v[i+1],
+// and G given in one of three ways:
 //   dense  : one panel per step;
 //   shared : ONE panel used at every step (panel stride 0);
 //   lerp   : sample panels, step k applies
@@ -58,6 +61,27 @@
 // the weights on the outputs.  At n = 1023 with bf16 samples the operations
 // (0.22 ms a sweep at R = 1, 0.60 ms at R = 4) pass the least traffic
 // (0.19 ms), so operations bind the function.
+//
+// Tridiagonal coupling.  In bwd / bwd_sub the coupling acts on `other`,
+// which every block reads whole in its prologue anyway: element i takes
+// other[i-1], other[i], other[i+1] and three coefficient rows.  In fwd it
+// acts on the PRODUCT w = G[k] @ prev, whose neighbouring rows belong to
+// other warps and, at a block's edge, to other blocks (the TPU kernel holds
+// all of w in scratch and rolls lanes; nothing carries across blocks here).
+// Chosen: the fwd step stores the RAW product w_k into one of two small
+// scratch rows (ping-pong: a step's blocks read w_{k-1} while others write
+// w_k), and the NEXT step's prologue, which reads the whole vector anyway,
+// forms prev = out[k] = u[k] - c[k] w_k; the block that owns rows
+// 4 b .. 4 b + 3 also stores those elements of out[k].  One small tail
+// kernel forms the last row.  So G is still read once a step, a sweep is
+// S + 1 launches instead of S, and every sum has a fixed order.  Not
+// chosen: a coupling kernel after every step (2 S launches of a
+// launch-bound sweep), float atomics (order changes run to run), or
+// recomputing the neighbour rows (three times the stream of G).
+// Assembly zeroes sub[0] and sup[n-1], but the kernel does not lean on it:
+// it never reads index -1 or n (with R > 1 those are the neighbouring
+// right-hand side's memory), so those two slots are ignored whatever they
+// hold, as the plain version's shifted slices ignore them.
 //
 // Each lane loads 16 bytes of a row at a time (8 bf16 or 4 f32 values), so
 // a row must start 16-byte aligned: the planes are (Mg, n, ld) with row
@@ -114,7 +138,8 @@ struct Vec16<__nv_bfloat16> {
 // What one sweep is given.  u, out: (S, R_total, n) complex64 with
 // `row_stride` = R_total * n elements between steps; this launch handles R
 // consecutive right-hand sides starting where the pointers point.
-// c: (S, n).  carry0: R rows of n.  g_lo, g_w: the lerp tables, or null.
+// c: (S, n), or (S, 3, n) when `tri`.  carry0: R rows of n.  g_lo, g_w: the
+// lerp tables, or null.  scratch: 2 * R * n complex words, for fwd with tri.
 struct SweepArgs {
     const void* g_re;
     const void* g_im;
@@ -127,25 +152,24 @@ struct SweepArgs {
     const float2* c;
     const float2* carry0;
     float2* out;
+    float2* scratch;
     cudaStream_t stream;
 };
 
-// One step, logical index k.  Shared memory: vr[R][ld], vi[R][ld] = the
-// vectors the panel is multiplied with.  `other` is prev (fwd) or next
-// (bwd, bwd_sub); u, other and out point at the step's first right-hand
-// side, the r-th one lies r * n further on.
-template <typename T, int MODE, int R, bool LERP>
-__global__ void __launch_bounds__(kThreads)
-sweep_step_kernel(const T* __restrict__ g_re, const T* __restrict__ g_im,
-                  long long panel_stride, int k,
-                  const int* __restrict__ g_lo,
-                  const float* __restrict__ g_w,
-                  const float2* __restrict__ u, const float2* __restrict__ c,
-                  const float2* other, float2* out, int n, int ld) {
-    extern __shared__ __align__(16) float smem[];
-    float* vr = smem;
-    float* vi = smem + R * ld;
+__device__ __forceinline__ float2 cmul_add(float2 a, float2 b, float2 acc) {
+    acc.x = fmaf(a.x, b.x, acc.x);
+    acc.x = fmaf(-a.y, b.y, acc.x);
+    acc.y = fmaf(a.x, b.y, acc.y);
+    acc.y = fmaf(a.y, b.x, acc.y);
+    return acc;
+}
 
+// Prologue of a step with diagonal coupling: fills the shared operand with
+// other (fwd), u - c * other (bwd) or u + c * other (bwd_sub).
+template <int MODE, int R>
+__device__ __forceinline__ void diag_prologue(
+        float* vr, float* vi, const float2* __restrict__ u,
+        const float2* __restrict__ c, const float2* other, int n, int ld) {
     // Loads first, uses after: a thread fetches kBatch elements of every
     // stream before it combines any, so their latencies overlap (left to
     // itself the compiler chained them: load, combine, load).  Elements
@@ -184,6 +208,117 @@ sweep_step_kernel(const T* __restrict__ g_re, const T* __restrict__ g_im,
                 }
             }
         }
+    }
+}
+
+// Prologue of a step with tridiagonal coupling: fills the shared operand
+//   v = base -+ c x,   c = [sub, diag, sup] rows of n,
+// for R right-hand sides.  bwd / bwd_sub: base = u[k], x = next, sign - / +.
+// fwd: base = u[k-1], x = the raw product w_{k-1} of the step before, sign -,
+// so v = out[k-1] = prev, and the block stores the elements of its own rows
+// to `store`; at the first step (`first`) v is x = carry0 as it is.
+// Loads first, uses after, as in the kernel below.  x[i-1] and x[i+1] are
+// read only inside 0..n-1.
+template <int MODE, int R>
+__device__ __forceinline__ void tri_prologue(
+        float* vr, float* vi, const float2* __restrict__ base,
+        const float2* __restrict__ c, const float2* x, float2* store,
+        bool first, int n, int ld) {
+    constexpr int kBatch = 4;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        for (int i0 = threadIdx.x; i0 < ld; i0 += kBatch * kThreads) {
+            float2 xm[kBatch], x0[kBatch], xp[kBatch];
+            float2 sub[kBatch], dia[kBatch], sup[kBatch], bs[kBatch];
+#pragma unroll
+            for (int j = 0; j < kBatch; ++j) {
+                const int i = i0 + j * kThreads;
+                const float2 zero = make_float2(0.f, 0.f);
+                xm[j] = x0[j] = xp[j] = sub[j] = dia[j] = sup[j] = bs[j] = zero;
+                if (i < n) {
+                    x0[j] = x[r * n + i];
+                    if (!first) {
+                        if (i > 0) {
+                            xm[j] = x[r * n + i - 1];
+                            sub[j] = c[i];
+                        }
+                        if (i + 1 < n) {
+                            xp[j] = x[r * n + i + 1];
+                            sup[j] = c[2 * n + i];
+                        }
+                        dia[j] = c[n + i];
+                        bs[j] = base[r * n + i];
+                    }
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < kBatch; ++j) {
+                const int i = i0 + j * kThreads;
+                if (i < ld) {
+                    float2 v = x0[j];
+                    if (!first) {
+                        float2 t = make_float2(0.f, 0.f);
+                        t = cmul_add(sub[j], xm[j], t);
+                        t = cmul_add(dia[j], x0[j], t);
+                        t = cmul_add(sup[j], xp[j], t);
+                        v = (MODE == kBwdSub)
+                            ? make_float2(bs[j].x + t.x, bs[j].y + t.y)
+                            : make_float2(bs[j].x - t.x, bs[j].y - t.y);
+                        if (MODE == kFwd && i < n
+                                && i / kWarpsPerBlock == (int)blockIdx.x)
+                            store[r * n + i] = v;
+                    }
+                    vr[r * ld + i] = v.x;
+                    vi[r * ld + i] = v.y;
+                }
+            }
+        }
+    }
+}
+
+// The last row of a fwd sweep with tridiagonal coupling:
+// out = u - c w for `nrhs` right-hand sides, one thread per element.
+__global__ void __launch_bounds__(kThreads)
+sweep_tri_tail_kernel(const float2* __restrict__ u,
+                      const float2* __restrict__ c,
+                      const float2* __restrict__ w, float2* out, int n,
+                      int nrhs) {
+    const int idx = blockIdx.x * kThreads + threadIdx.x;
+    if (idx >= nrhs * n) return;
+    const int r = idx / n, i = idx - r * n;
+    float2 t = make_float2(0.f, 0.f);
+    if (i > 0) t = cmul_add(c[i], w[r * n + i - 1], t);
+    t = cmul_add(c[n + i], w[r * n + i], t);
+    if (i + 1 < n) t = cmul_add(c[2 * n + i], w[r * n + i + 1], t);
+    const float2 ui = u[idx];
+    out[idx] = make_float2(ui.x - t.x, ui.y - t.y);
+}
+
+// One step, logical index k.  Shared memory: vr[R][ld], vi[R][ld] = the
+// vectors the panel is multiplied with.  `other` is prev (fwd) or next
+// (bwd, bwd_sub); u, other and out point at the step's first right-hand
+// side, the r-th one lies r * n further on.  With TRI, c points at the
+// step's three rows; in fwd mode u, c and out are those of the step BEFORE,
+// `other` is its raw product (carry0 at the first step, `first`), and this
+// step's raw product goes to `raw` (see tri_prologue).
+template <typename T, int MODE, int R, bool LERP, bool TRI>
+__global__ void __launch_bounds__(kThreads)
+sweep_step_kernel(const T* __restrict__ g_re, const T* __restrict__ g_im,
+                  long long panel_stride, int k,
+                  const int* __restrict__ g_lo,
+                  const float* __restrict__ g_w,
+                  const float2* __restrict__ u, const float2* __restrict__ c,
+                  const float2* other, float2* out, float2* raw, int first,
+                  int n, int ld) {
+    extern __shared__ __align__(16) float smem[];
+    float* vr = smem;
+    float* vi = smem + R * ld;
+
+    if (TRI) {
+        tri_prologue<MODE, R>(vr, vi, u, c, other, out,
+                              MODE == kFwd && first != 0, n, ld);
+    } else {
+        diag_prologue<MODE, R>(vr, vi, u, c, other, n, ld);
     }
     __syncthreads();
 
@@ -287,7 +422,10 @@ sweep_step_kernel(const T* __restrict__ g_re, const T* __restrict__ g_im,
             si = w0 * si + w1 * acc_im[P - 1][r];
         }
         float2 res;
-        if (MODE == kFwd) {
+        if (MODE == kFwd && TRI) {
+            raw[r * n + row] = make_float2(sr, si);
+            continue;
+        } else if (MODE == kFwd) {
             const float2 ci = c[row];
             const float2 ui = u[r * n + row];
             res.x = ui.x - (ci.x * sr - ci.y * si);
@@ -302,7 +440,7 @@ sweep_step_kernel(const T* __restrict__ g_re, const T* __restrict__ g_im,
     }
 }
 
-template <typename T, int MODE, int R, bool LERP>
+template <typename T, int MODE, int R, bool LERP, bool TRI>
 int run_sweep(const SweepArgs& a) {
     const T* g_re = (const T*)a.g_re;
     const T* g_im = (const T*)a.g_im;
@@ -311,56 +449,81 @@ int run_sweep(const SweepArgs& a) {
     if (smem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
-            sweep_step_kernel<T, MODE, R, LERP>,
+            sweep_step_kernel<T, MODE, R, LERP, TRI>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
+    const size_t c_stride = (size_t)(TRI ? 3 : 1) * a.n;
+    // fwd with tridiagonal coupling: step k leaves its raw product in
+    // scratch row k % 2 and finishes row k - 1 (see the note at the top)
+    constexpr bool kDeferred = TRI && MODE == kFwd;
+    float2* raw[2] = {a.scratch,
+                      kDeferred ? a.scratch + (size_t)R * a.n : nullptr};
     for (int s = 0; s < a.S; ++s) {
         // fwd walks rows first to last, the backward modes last to first;
         // step row k uses panel k (dense), the one shared panel, or the
         // pair of sample panels that the tables name for k (lerp)
         const int k = (MODE == kFwd) ? s : a.S - 1 - s;
+        // the row whose u, c and out the kernel is handed
+        const int row = (kDeferred && s > 0) ? k - 1 : k;
         const float2* other;
         if (s == 0) {
             other = a.carry0;
+        } else if (kDeferred) {
+            other = raw[(k - 1) % 2];
         } else {
             other = a.out + (size_t)((MODE == kFwd) ? k - 1 : k + 1)
                                 * a.row_stride;
         }
-        const size_t row_off = (size_t)k * a.row_stride;
-        sweep_step_kernel<T, MODE, R, LERP>
+        const size_t row_off = (size_t)row * a.row_stride;
+        sweep_step_kernel<T, MODE, R, LERP, TRI>
             <<<blocks, kThreads, smem, a.stream>>>(
                 g_re, g_im, a.panel_stride, k, a.g_lo, a.g_w, a.u + row_off,
-                a.c + (size_t)k * a.n, other, a.out + row_off, a.n, a.ld);
+                a.c + (size_t)row * c_stride, other, a.out + row_off,
+                kDeferred ? raw[k % 2] : nullptr, s == 0, a.n, a.ld);
+    }
+    if (kDeferred) {
+        const int last = a.S - 1;
+        const size_t row_off = (size_t)last * a.row_stride;
+        sweep_tri_tail_kernel
+            <<<(R * a.n + kThreads - 1) / kThreads, kThreads, 0, a.stream>>>(
+                a.u + row_off, a.c + (size_t)last * c_stride, raw[last % 2],
+                a.out + row_off, a.n, R);
     }
     return (int)cudaGetLastError();
 }
 
-template <typename T, int MODE, bool LERP>
+template <typename T, int MODE, bool LERP, bool TRI>
 int dispatch_width(int nrhs, const SweepArgs& a) {
     switch (nrhs) {
-        case 1: return run_sweep<T, MODE, 1, LERP>(a);
-        case 2: return run_sweep<T, MODE, 2, LERP>(a);
-        case 3: return run_sweep<T, MODE, 3, LERP>(a);
-        case 4: return run_sweep<T, MODE, 4, LERP>(a);
+        case 1: return run_sweep<T, MODE, 1, LERP, TRI>(a);
+        case 2: return run_sweep<T, MODE, 2, LERP, TRI>(a);
+        case 3: return run_sweep<T, MODE, 3, LERP, TRI>(a);
+        case 4: return run_sweep<T, MODE, 4, LERP, TRI>(a);
     }
     return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, bool LERP>
+template <typename T, bool LERP, bool TRI>
 int dispatch_mode(int mode, int nrhs, const SweepArgs& a) {
     switch (mode) {
-        case kFwd: return dispatch_width<T, kFwd, LERP>(nrhs, a);
-        case kBwd: return dispatch_width<T, kBwd, LERP>(nrhs, a);
-        case kBwdSub: return dispatch_width<T, kBwdSub, LERP>(nrhs, a);
+        case kFwd: return dispatch_width<T, kFwd, LERP, TRI>(nrhs, a);
+        case kBwd: return dispatch_width<T, kBwd, LERP, TRI>(nrhs, a);
+        case kBwdSub: return dispatch_width<T, kBwdSub, LERP, TRI>(nrhs, a);
     }
     return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, bool TRI>
+int dispatch_lerp(int mode, int nrhs, const SweepArgs& a) {
+    return a.g_lo ? dispatch_mode<T, true, TRI>(mode, nrhs, a)
+                  : dispatch_mode<T, false, TRI>(mode, nrhs, a);
 }
 
 template <typename T>
-int dispatch_lerp(int mode, int nrhs, const SweepArgs& a) {
-    return a.g_lo ? dispatch_mode<T, true>(mode, nrhs, a)
-                  : dispatch_mode<T, false>(mode, nrhs, a);
+int dispatch_coupling(int mode, int nrhs, int tri, const SweepArgs& a) {
+    return tri ? dispatch_lerp<T, true>(mode, nrhs, a)
+               : dispatch_lerp<T, false>(mode, nrhs, a);
 }
 
 }  // namespace
@@ -372,22 +535,26 @@ int dispatch_lerp(int mode, int nrhs, const SweepArgs& a) {
 // elements between consecutive steps of u and out (the whole batch's
 // R_total * n).  g_lo (S int32, values <= panels - 2) and g_w (S x 2
 // float32): device pointers to the lerp tables, or both null.  u, out:
-// nrhs rows of n per step; c: (S, n); carry0: nrhs rows of n; complex64.
+// nrhs rows of n per step; carry0: nrhs rows of n; complex64.  tri: 0 for
+// diagonal coupling, c (S, n); 1 for tridiagonal, c (S, 3, n) as [sub,
+// diag, sup].  scratch: 2 * nrhs * n complex64 words of device memory that
+// mode 0 with tri = 1 writes and reads; otherwise unused and may be null.
 extern "C" int hh_sweep(int mode, int g_bf16, const void* g_re,
                         const void* g_im, long long panel_stride, int ld,
                         int n, int S, int nrhs, long long row_stride,
                         const void* g_lo, const void* g_w, const void* u,
-                        const void* c, const void* carry0, void* out,
-                        void* stream) {
+                        const void* c, int tri, const void* carry0,
+                        void* out, void* scratch, void* stream) {
     if (ld % 8 != 0 || ld < n || n <= 0 || S <= 0 || nrhs < 1
             || nrhs > kMaxRhs || row_stride < (long long)nrhs * n
-            || (g_lo == nullptr) != (g_w == nullptr))
+            || (g_lo == nullptr) != (g_w == nullptr)
+            || (tri && mode == kFwd && scratch == nullptr))
         return (int)cudaErrorInvalidValue;
     const SweepArgs a = {g_re, g_im, panel_stride, ld, n, S, row_stride,
                          (const int*)g_lo, (const float*)g_w,
                          (const float2*)u, (const float2*)c,
                          (const float2*)carry0, (float2*)out,
-                         (cudaStream_t)stream};
-    if (g_bf16) return dispatch_lerp<__nv_bfloat16>(mode, nrhs, a);
-    return dispatch_lerp<float>(mode, nrhs, a);
+                         (float2*)scratch, (cudaStream_t)stream};
+    if (g_bf16) return dispatch_coupling<__nv_bfloat16>(mode, nrhs, tri, a);
+    return dispatch_coupling<float>(mode, nrhs, tri, a);
 }

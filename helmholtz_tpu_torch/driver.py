@@ -3,14 +3,17 @@ solve, and `run_multisolve`, many sources and many frequencies against one
 operator each.
 
 Eager stages (assemble, factor, solve) on one device.  On the card every
-operator product goes through the stencil kernel and every sweep through the
-sweep kernel (`ops.kernels`); on the CPU, which the caller must ask for, the
-same wrappers run their plain PyTorch versions.
+5-point operator product goes through the stencil kernel and every sweep,
+5-point or 9-point, through the sweep kernel (`ops.kernels`); on the CPU,
+which the caller must ask for, the same wrappers run their plain PyTorch
+versions.  The 9-point operator product (`stencil="9pt"`) is plain tensor
+code on either device, as the JAX package leaves it to its compiler.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Optional
 
@@ -18,14 +21,17 @@ import numpy as np
 import torch
 
 from ._device import real_dtype_of, resolve_device
-from .core.sparse import Stencil5
+from .core.sparse import Stencil9
 from .fd import problems as fd_problems
 from .fd import stencil as fd_stencil
 from .ops import spmv as plain_spmv
 from .ops.kernels.spmv_stencil import stencil_matvec_flat
-from .precond.sweeping import (DEFAULT_SETUP_CHUNK, SweepingPreconditioner,
+from .precond.sweeping import (DEFAULT_SETUP_CHUNK,
                                preconditioner_from_samples,
                                setup_preconditioner)
+from .precond.sweeping9 import (preconditioner_from_samples9,
+                                setup_preconditioner9,
+                                setup_preconditioner9_assembling)
 from .solve.batched import solve_multi_rhs
 from .solve.gmres import KrylovResult, gmres
 from .solve.ir import ir_gmres, ir_gmres_batched
@@ -58,6 +64,36 @@ def auto_factor_stride(n: int, problem: str, device="cuda") -> int:
             and problem in fd_problems.SMOOTH_VELOCITY):
         return max(1, min(8, n // 128))
     return 1
+
+
+def min_pml_width9(n: int) -> int:
+    """Minimum moved-PML depth for the 9-POINT sweeping preconditioner.
+
+    The 9-point subgrid needs a WIDER moved PML than the 5-point scheme's
+    b = 12: the tapered diagonal branch leaves only the 5-point part
+    absorbing, so the layer must be deeper; b about n/14 keeps iteration
+    counts flat (`precond.sweeping9`).  No lower floor: at small sizes
+    (n <= ~170) any b works and tiny test grids use b < 12."""
+    return -(-n // 14)
+
+
+def _check_pml_width9(n: int, b: int) -> None:
+    """Refuse NOISILY when a 9-point solve is configured with a PML too
+    thin for its preconditioner to converge.  b is a property of the
+    PROBLEM (eta = b*h shapes the global operator), so it is never widened
+    behind the caller's back; the guard raises with the recipe instead.
+    HELMHOLTZ_TPU_9PT_ALLOW_THIN_PML=1 opts into the thin-PML configuration
+    for experimentation."""
+    need = min_pml_width9(n)
+    if b >= need or os.environ.get("HELMHOLTZ_TPU_9PT_ALLOW_THIN_PML"):
+        return
+    raise ValueError(
+        f"stencil='9pt' with PML width b={b} at n={n}: the 9-point "
+        f"sweeping preconditioner needs b >= ~n/14 = {need} (measured: "
+        f"at the 5-point default b=12 the n=511 solve does not converge "
+        f"in 100 iterations; precond.sweeping9 docstring).  Pass "
+        f"b={need} (with C ~ 60), or set "
+        f"HELMHOLTZ_TPU_9PT_ALLOW_THIN_PML=1 to force this b.")
 
 
 def _sync(dev: torch.device) -> None:
@@ -150,6 +186,68 @@ def _assemble_stage(wave_num, const, alpha, *, n, b, problem, fidelity,
 _G_DTYPES = {"working": None, "f32": torch.float32, "bf16": torch.bfloat16}
 
 
+def _assemble_a9_stage(wave_num, const, alpha, gamma, *, n, b, problem,
+                       fidelity, cdtype, device):
+    """Assemble ONLY the 9-point global operator (no subgrid family): the
+    cheap per-frequency work of an omega-amortized 9-point sweep.  Returns
+    (A9, c_full, f_grid); f_grid is the raw forcing, not yet filtered."""
+    omega = complex(2.0 * math.pi * wave_num, alpha)
+    h = 1.0 / (n + 1)
+    eta = b * h
+    c_full, f_grid = fd_problems.PROBLEMS[problem](
+        omega, n, complex_dtype=cdtype, device=device)
+    A9 = fd_stencil.build_a_stencil9(n, b, const, eta, omega, h, c_full,
+                                     gamma=gamma, fidelity=fidelity,
+                                     complex_dtype=cdtype)
+    return A9, c_full, f_grid
+
+
+def _mass_filter9_stage(F, wave_num, const, alpha, *, n, b):
+    """Apply the Mehrstellen right-hand-side filter to a (batch of) forcing
+    grid(s) (`fd.stencil.mass_filter9`): the compact scheme solves
+    A9 u = M f, so the filtered forcing is the system's right-hand side and
+    the one the true residual is taken against."""
+    omega = complex(2.0 * math.pi * wave_num, alpha)
+    h = 1.0 / (n + 1)
+    return fd_stencil.mass_filter9(n, b, const, b * h, omega, h, F)
+
+
+def _setup9_stage(wave_num, const, alpha, gamma, *, n, b, problem, fidelity,
+                  cdtype, device, factor_stride, g_dtype="working",
+                  d2_replace=True, setup_chunk=DEFAULT_SETUP_CHUNK,
+                  g_compress=False, use_precond=True):
+    """9-point assembly + factorization of one frequency: returns (A9,
+    filtered forcing grid, preconditioner or None).
+
+    A SAMPLED setup (factor_stride > 1 on more than factor_stride sweep
+    rows) assembles the sample subgrids chunk by chunk inside the factor
+    loop (`precond.sweeping9.setup_preconditioner9_assembling`), so the
+    nine-field family exists one chunk at a time; the exact stride-1 setup
+    assembles the whole family and then factors it."""
+    omega = complex(2.0 * math.pi * wave_num, alpha)
+    h = 1.0 / (n + 1)
+    eta = b * h
+    A9, c_full, f_grid = _assemble_a9_stage(
+        wave_num, const, alpha, gamma, n=n, b=b, problem=problem,
+        fidelity=fidelity, cdtype=cdtype, device=device)
+    f9 = _mass_filter9_stage(f_grid.to(cdtype), wave_num, const, alpha,
+                             n=n, b=b)
+    if not use_precond:
+        return A9, f9, None
+    common = dict(d2_replace=d2_replace, setup_chunk=setup_chunk,
+                  g_dtype=_G_DTYPES[g_dtype], factor_stride=factor_stride)
+    if factor_stride > 1 and (n - b) > factor_stride:
+        P = setup_preconditioner9_assembling(
+            A9, b, const, eta, omega, h, c_full, gamma=gamma,
+            fidelity=fidelity, g_compress=g_compress, **common)
+    else:
+        hm9 = fd_stencil.build_hm_stencils9(
+            n, b, const, eta, omega, h, c_full, gamma=gamma,
+            fidelity=fidelity, complex_dtype=cdtype)
+        P = setup_preconditioner9(A9, hm9, b, device=device, **common)
+    return A9, f9, P
+
+
 def _factor_stage(A, hm, *, b, hf_full_coupling, d2_replace, setup_chunk,
                   g_dtype="working", factor_stride=1, g_compress=False,
                   device):
@@ -161,8 +259,16 @@ def _factor_stage(A, hm, *, b, hf_full_coupling, d2_replace, setup_chunk,
                                 g_compress=g_compress, device=device)
 
 
-def _solve_stage(A: Stencil5, P: Optional[SweepingPreconditioner],
-                 f: torch.Tensor, rtol, *, restart, maxiter, use_precond,
+def _matvec_of(A):
+    """The operator product on one flat vector: the stencil kernel's
+    wrapper for a Stencil5, plain tensor code for a Stencil9."""
+    if isinstance(A, Stencil9):
+        return lambda v: plain_spmv.stencil9_matvec_flat(A, v)
+    return lambda v: stencil_matvec_flat(A, v)
+
+
+def _solve_stage(A, P, f: torch.Tensor, rtol, *, restart, maxiter,
+                 use_precond,
                  method="gmres", precond_refine=0, precision="f32",
                  inner_rtol=1e-2, device) -> KrylovResult:
     if precision not in ("f32", "ir-df32"):
@@ -170,11 +276,11 @@ def _solve_stage(A: Stencil5, P: Optional[SweepingPreconditioner],
     if method == "bicgstab":
         raise NotImplementedError(
             "method='bicgstab' belongs to the solver-extras slice of the "
-            "port, which is not ported yet")
+            "port (queue 1 item 13), which is not ported yet")
     if method != "gmres":
         raise ValueError(f"unknown method {method!r}")
 
-    mv = lambda v: stencil_matvec_flat(A, v)
+    mv = _matvec_of(A)
     M = _refined(P, mv, precond_refine) if use_precond else None
     if precision == "ir-df32":
         # complex128 solution carry + complex128 residual: the path that
@@ -186,12 +292,14 @@ def _solve_stage(A: Stencil5, P: Optional[SweepingPreconditioner],
                  maxiter=maxiter, device=device)
 
 
-def _matvec_hi(A: Stencil5):
+def _matvec_hi(A):
     """The operator product in complex128 on A's own coefficients, widened:
-    (..., N) -> (..., N), plain PyTorch.  What the refinement's residual
-    b - A x is computed with."""
+    (..., N) -> (..., N), plain PyTorch, for either stencil.  What the
+    refinement's residual b - A x is computed with."""
     A_hi = A.map(lambda f: f.to(torch.complex128))
-    return lambda x: plain_spmv.stencil_matvec_flat(A_hi, x)
+    flat = (plain_spmv.stencil9_matvec_flat if isinstance(A, Stencil9)
+            else plain_spmv.stencil_matvec_flat)
+    return lambda x: flat(A_hi, x)
 
 
 def _refined(M0, mv, precond_refine: int):
@@ -243,6 +351,7 @@ def run_solver(n: int, b: int, wave_num: float, const: float,
                method: str = "gmres",
                precond: str = "moving_pml",
                stencil: str = "5pt",
+               stencil_gamma: float = 2.0 / 3.0,
                precond_refine: int = 0,
                precision: str = "f32",
                g_dtype: str = "working",
@@ -261,21 +370,50 @@ def run_solver(n: int, b: int, wave_num: float, const: float,
     every clip(n//128, 1, 8)-th subgrid and interpolate; exact stride 1 on
     the CPU and always available via factor_stride=1.
 
+    `stencil="9pt"` solves the compact 9-point discretization
+    (`fd.stencil.build_a_stencil9`, blend `stencil_gamma`) with its own
+    moving-PML sweeping preconditioner (`precond.sweeping9`); it needs a
+    PML of b >= ~n/14 layers and takes neither `dedup_hm` nor
+    `hf_full_coupling=False`, which are features of the 5-point path.
+
     With the default device and no card this raises; the CPU is used only
     when asked for.
     """
     dev = resolve_device(device)
-    if stencil != "5pt":
+    if stencil not in ("5pt", "9pt"):
+        raise ValueError(f"unknown stencil {stencil!r}")
+    if precond in ("recompute", "exact"):
         raise NotImplementedError(
-            f"stencil={stencil!r}: only the 5-point scheme is ported yet")
+            f"precond={precond!r} belongs to a later slice of the port "
+            "(queue 1 item " + ("15" if precond == "recompute" else "14")
+            + "), which is not ported yet")
     if precond not in ("moving_pml", "none"):
-        raise NotImplementedError(
-            f"precond={precond!r}: only 'moving_pml' and 'none' are ported "
-            "yet")
+        raise ValueError(f"unknown precond {precond!r}")
     _set_full_float32()
     cdtype = complex_dtype or default_complex_dtype(dev)
     maxiter = maxiter if maxiter is not None else (200 if precond != "none"
                                                   else 20_000)
+    if stencil == "9pt":
+        # reject options the 9-point path does not implement rather than
+        # silently dropping them
+        bad = [k for k, v, default in (("dedup_hm", dedup_hm, None),
+                                       ("hf_full_coupling",
+                                        hf_full_coupling, True))
+               if v != default]
+        if bad:
+            raise ValueError(f"stencil='9pt' does not support {bad} "
+                             "(5-point-path features)")
+        if precond == "moving_pml":
+            _check_pml_width9(n, b)
+        if factor_stride is None:
+            factor_stride = auto_factor_stride(n, problem, dev)
+        return _run_solver9(
+            n, b, wave_num, const, alpha, problem, rtol=rtol,
+            restart=restart, maxiter=maxiter, method=method, precond=precond,
+            g_dtype=g_dtype, fidelity=fidelity, d2_replace=d2_replace,
+            setup_chunk=setup_chunk, factor_stride=factor_stride,
+            gamma=stencil_gamma, cdtype=cdtype, g_compress=g_compress,
+            precision=precision, precond_refine=precond_refine, device=dev)
     if dedup_hm is None:
         dedup_hm = (problem in fd_problems.ROW_INVARIANT_VELOCITY
                     and fidelity == "corrected")
@@ -307,23 +445,8 @@ def run_solver(n: int, b: int, wave_num: float, const: float,
     _sync(dev)
     t2 = time.perf_counter()
 
-    u = res.x.cpu().numpy().reshape(n, n)
-    f_np = f_grid.cpu().numpy().reshape(-1)
-    # true residual via the host SpMV on the assembled operator
-    Au = _host_stencil_matvec(A.to_numpy(), u)
-    true_res = float(np.linalg.norm(Au.reshape(-1) - f_np)
-                     / np.linalg.norm(f_np))
-    history = res.history[~np.isnan(res.history)]
-
-    return SolveReport(
-        u=u,
-        iterations=int(res.iterations),
-        converged=bool(res.converged),
-        residual_norm=float(res.residual_norm),
-        true_residual=true_res,
-        history=history,
-        init_time=t1 - t0,
-        solve_time=t2 - t1,
+    return _solve_report(
+        A, f_grid, res, n, init_time=t1 - t0, solve_time=t2 - t1,
         config=dict(n=n, b=b, wave_num=wave_num, const=const, alpha=alpha,
                     problem=problem, rtol=rtol, restart=restart,
                     method=method, precond=precond, fidelity=fidelity,
@@ -331,8 +454,60 @@ def run_solver(n: int, b: int, wave_num: float, const: float,
                     g_dtype=g_dtype, factor_stride=factor_stride,
                     g_compress=g_compress, dedup_hm=dedup_hm,
                     dtype=str(cdtype).replace("torch.", ""),
-                    device=str(dev)),
-    )
+                    device=str(dev)))
+
+
+def _solve_report(A, f_grid, res: KrylovResult, n, *, init_time, solve_time,
+                  config) -> SolveReport:
+    """The host-side record of one solve; the true residual is recomputed
+    with the host product on the assembled operator (either stencil)."""
+    u = res.x.cpu().numpy().reshape(n, n)
+    f_np = f_grid.cpu().numpy().reshape(-1)
+    Au = _host_matvec_any(A.to_numpy(), u)
+    true_res = float(np.linalg.norm(Au.reshape(-1) - f_np)
+                     / np.linalg.norm(f_np))
+    return SolveReport(
+        u=u, iterations=int(res.iterations), converged=bool(res.converged),
+        residual_norm=float(res.residual_norm), true_residual=true_res,
+        history=res.history[~np.isnan(res.history)], init_time=init_time,
+        solve_time=solve_time, config=config)
+
+
+def _run_solver9(n, b, wave_num, const, alpha, problem, *, rtol, restart,
+                 maxiter, method, precond, g_dtype, fidelity, d2_replace,
+                 setup_chunk, factor_stride, gamma, cdtype, g_compress,
+                 precision, precond_refine, device) -> SolveReport:
+    """`run_solver` for stencil='9pt': the 9-point discretization solved end
+    to end with its own moving-PML sweeping preconditioner."""
+    _sync(device)
+    t0 = time.perf_counter()
+    use_precond = precond != "none"
+    A9, f9, P = _setup9_stage(
+        wave_num, const, alpha, gamma, n=n, b=b, problem=problem,
+        fidelity=fidelity, cdtype=cdtype, device=device,
+        factor_stride=factor_stride, g_dtype=g_dtype, d2_replace=d2_replace,
+        setup_chunk=setup_chunk, g_compress=g_compress,
+        use_precond=use_precond)
+    _sync(device)
+    t1 = time.perf_counter()
+    res = _solve_stage(A9, P, f9, rtol, restart=restart, maxiter=maxiter,
+                       use_precond=use_precond, method=method,
+                       precond_refine=precond_refine, precision=precision,
+                       device=device)
+    _sync(device)
+    t2 = time.perf_counter()
+    sampled = factor_stride > 1 and (n - b) > factor_stride
+    return _solve_report(
+        A9, f9, res, n, init_time=t1 - t0, solve_time=t2 - t1,
+        config=dict(n=n, b=b, wave_num=wave_num, const=const, alpha=alpha,
+                    problem=problem, rtol=rtol, restart=restart,
+                    method=method, precond=precond, fidelity=fidelity,
+                    stencil="9pt", stencil_gamma=gamma, g_dtype=g_dtype,
+                    factor_stride=factor_stride,
+                    g_compress=bool(g_compress and sampled),
+                    precision=precision, precond_refine=precond_refine,
+                    dtype=str(cdtype).replace("torch.", ""),
+                    device=str(device)))
 
 
 def _host_stencil_matvec(A_np, u):
@@ -345,6 +520,26 @@ def _host_stencil_matvec(A_np, u):
     out[1:, :] += cs[1:, :] * u[:-1, :]
     out[:-1, :] += cn[:-1, :] * u[1:, :]
     return out
+
+
+def _host_stencil9_matvec(A_np, u):
+    """Numpy 9-point stencil apply (the 5-point cross + corner couplings)
+    for host-side residual verification of the 9-point path; A_np is the
+    tuple of nine numpy fields in `Stencil9` order."""
+    csw, cse, cnw, cne = A_np[5:]
+    out = _host_stencil_matvec(A_np[:5], u)
+    out[1:, 1:] += csw[1:, 1:] * u[:-1, :-1]
+    out[1:, :-1] += cse[1:, :-1] * u[:-1, 1:]
+    out[:-1, 1:] += cnw[:-1, 1:] * u[1:, :-1]
+    out[:-1, :-1] += cne[:-1, :-1] * u[1:, 1:]
+    return out
+
+
+def _host_matvec_any(A_np, u):
+    """Host stencil apply for either footprint, told apart by the number of
+    fields."""
+    return (_host_stencil9_matvec(A_np, u) if len(A_np) == 9
+            else _host_stencil_matvec(A_np, u))
 
 
 # -- many sources, many frequencies -------------------------------------------
@@ -368,17 +563,20 @@ def _sources_stage(wave_num, alpha, r1s, r2s, *, n, problem, cdtype, device):
                         for r1, r2 in zip(r1s, r2s)])
 
 
-def _msolve_stage(A: Stencil5, P: SweepingPreconditioner, F: torch.Tensor,
+def _msolve_stage(A, P, F: torch.Tensor,
                   rtol, *, restart, maxiter, method="gmres",
                   precision="f32", precond_refine=0, inner_rtol=1e-2,
                   device) -> KrylovResult:
     """Batched-RHS solve: (K, n, n) right-hand sides through one operator
     and one preconditioner, the batch sharing a single G stream per apply.
-    The operator product runs once per right-hand side (the stencil kernel
-    takes one grid).  `precision="ir-df32"` and `precond_refine` mirror the
-    single-RHS `_solve_stage`."""
+    The 5-point operator product runs once per right-hand side (the stencil
+    kernel takes one grid); the 9-point one takes the batch as it is.
+    `precision="ir-df32"` and `precond_refine` mirror the single-RHS
+    `_solve_stage`."""
     K = F.shape[0]
-    mv = lambda V: torch.stack([stencil_matvec_flat(A, v) for v in V])
+    one = _matvec_of(A)
+    mv = one if isinstance(A, Stencil9) else (
+        lambda V: torch.stack([one(v) for v in V]))
     M = _refined(P.apply_multi, mv, precond_refine)
     if method == "gmres" and precision == "ir-df32":
         return ir_gmres_batched(mv, _matvec_hi(A), F.reshape(K, -1), M=M,
@@ -392,7 +590,7 @@ def _msolve_stage(A: Stencil5, P: SweepingPreconditioner, F: torch.Tensor,
                            device=device)
 
 
-def _g_accounting(P: SweepingPreconditioner, n, b, g_compress) -> dict:
+def _g_accounting(P, n, b, g_compress) -> dict:
     """At-rest factor bytes + modeled per-apply G traffic for a stored
     preconditioner: each apply streams the stack twice (fwd + fused
     diag/bwd sweeps); for a compressed stack the model counts BOTH
@@ -423,18 +621,21 @@ def _omega_lerp_pair(Ga_re, Ga_im, Gb_re, Gb_im, tau: float):
     return lerp(Ga_re, Gb_re), lerp(Ga_im, Gb_im)
 
 
-def _precond_from_samples_stage(A: Stencil5, P_a: SweepingPreconditioner,
-                                P_b: SweepingPreconditioner, tau: float, *,
-                                b, g_stride, hf_full_coupling=True,
-                                d2_replace=True) -> SweepingPreconditioner:
+def _precond_from_samples_stage(A, P_a, P_b, tau: float, *, b, g_stride,
+                                hf_full_coupling=True, d2_replace=True):
     """Preconditioner at an intermediate frequency of an amortized sweep:
     the compressed G sample stack is the omega-LERP of the two bracketing
     anchor stacks (float32 accumulation; same smoothness argument as
     factor_stride: G is as smooth in omega as it is in m), and only H_F is
     actually factored.  Setup cost: one streaming pass over the two anchor
-    stacks instead of ~M/stride dense corner factorizations."""
+    stacks instead of ~M/stride dense corner factorizations.  The lerp does
+    not depend on the stencil; a Stencil9 operator gets the 9-point H_F."""
     G_re, G_im = _omega_lerp_pair(P_a.G_re, P_a.G_im, P_b.G_re, P_b.G_im,
                                   tau)
+    if isinstance(A, Stencil9):
+        return preconditioner_from_samples9(A, b, G_re, G_im,
+                                            g_stride=g_stride,
+                                            d2_replace=d2_replace)
     return preconditioner_from_samples(A, b, G_re, G_im, g_stride=g_stride,
                                        hf_full_coupling=hf_full_coupling,
                                        d2_replace=d2_replace)
@@ -448,7 +649,7 @@ def _multisolve_record(key_cfg, A, P, res, F, *, wave_num, const, n,
     F_np = F.cpu().numpy().reshape(n_sources, n, n)
     X = res.x.cpu().numpy().reshape(n_sources, n, n)
     true_res = [float(np.linalg.norm(
-        (_host_stencil_matvec(A_np, X[k]) - F_np[k]).ravel())
+        (_host_matvec_any(A_np, X[k]) - F_np[k]).ravel())
         / np.linalg.norm(F_np[k].ravel())) for k in range(n_sources)]
     return {
         **key_cfg, "wave_num": float(wave_num), "const": float(const),
@@ -507,26 +708,28 @@ def run_multisolve(n: int, b: int, wave_nums, consts=None,
     Returns one record dict per frequency (per-source iteration counts,
     residuals, timings), in the order of `wave_nums`, with the reference
     package's keys; `compiled` is always False here (nothing is compiled
-    per call).  `mesh_devices`, `stencil="9pt"` and `precond="recompute"`
-    belong to later slices of the port and raise NotImplementedError.
+    per call).  `stencil="9pt"` runs the same sweep on the 9-point
+    discretization (right-hand sides filtered by `fd.stencil.mass_filter9`,
+    PML width checked as in `run_solver`).  `mesh_devices` and
+    `precond="recompute"` belong to later slices of the port and raise
+    NotImplementedError.
     """
     dev = resolve_device(device)
     if mesh_devices:
         raise NotImplementedError(
             "mesh_devices belongs to the distributed slice of the port "
             "(queue 1 item 16), which is not ported yet")
-    if stencil == "9pt":
-        raise NotImplementedError(
-            "stencil='9pt' belongs to the 9-point slice of the port (queue "
-            "1 item 12): only the 5-point scheme is ported yet")
-    if stencil != "5pt":
+    if stencil not in ("5pt", "9pt"):
         raise ValueError(f"unknown stencil {stencil!r}")
+    nine = stencil == "9pt"
     if precond == "recompute":
         raise NotImplementedError(
             "precond='recompute' belongs to the recompute slice of the port "
             "(queue 1 item 15), which is not ported yet")
     if precond != "moving_pml":
         raise ValueError(f"unknown multisolve precond {precond!r}")
+    if nine:
+        _check_pml_width9(n, b)
     _set_full_float32()
     cdtype = complex_dtype or default_complex_dtype(dev)
     wf = {torch.float32: np.float32,
@@ -552,15 +755,31 @@ def run_multisolve(n: int, b: int, wave_nums, consts=None,
     common = dict(n=n, n_sources=n_sources, cdtype=cdtype, g_dtype=g_dtype)
     stage = dict(n=n, b=b, problem=problem, fidelity=fidelity, cdtype=cdtype,
                  device=dev)
-    factor = dict(b=b, hf_full_coupling=True, d2_replace=True,
-                  setup_chunk=setup_chunk, g_dtype=g_dtype,
-                  factor_stride=factor_stride, device=dev)
+    factor = dict(d2_replace=True, setup_chunk=setup_chunk, g_dtype=g_dtype,
+                  factor_stride=factor_stride)
     solve = dict(restart=restart, maxiter=maxiter, precision=precision,
                  precond_refine=precond_refine, device=dev)
 
-    def sources_at(wn):
-        return _sources_stage(wn, alpha, r1s, r2s, n=n, problem=problem,
-                              cdtype=cdtype, device=dev)
+    def sources_at(wn, C):
+        F = _sources_stage(wn, alpha, r1s, r2s, n=n, problem=problem,
+                           cdtype=cdtype, device=dev)
+        return _mass_filter9_stage(F, wn, C, alpha, n=n, b=b) if nine else F
+
+    def factor_at(wn, C, compress):
+        """(A, P) of one frequency, assembled and factored from scratch."""
+        if nine:
+            A, _, P = _setup9_stage(wn, C, alpha, stencil_gamma,
+                                    g_compress=compress, **stage, **factor)
+            return A, P
+        A, hm, _ = _assemble_stage(wn, C, alpha, **stage)
+        return A, _factor_stage(A, hm, b=b, hf_full_coupling=True,
+                                g_compress=compress, device=dev, **factor)
+
+    def assemble_at(wn, C):
+        """The operator alone, for a frequency between two anchors."""
+        if nine:
+            return _assemble_a9_stage(wn, C, alpha, stencil_gamma, **stage)[0]
+        return _assemble_a_stage(wn, C, alpha, **stage)[0]
 
     if freq_anchor_every > 1:
         if not g_compress or factor_stride <= 1:
@@ -574,10 +793,11 @@ def run_multisolve(n: int, b: int, wave_nums, consts=None,
                 "the subgrid PML, so mixed-C anchor stacks would lerp "
                 "different operators")
         return _run_multisolve_amortized(
-            [float(w) for w in wave_nums], float(consts[0]), alpha,
-            sources_at, rtol=rtol, factor_stride=factor_stride,
+            [float(w) for w in wave_nums], float(consts[0]), sources_at,
+            factor_at, assemble_at, rtol=rtol, b=b,
+            factor_stride=factor_stride,
             freq_anchor_every=freq_anchor_every, key_cfg=key_cfg,
-            common=common, stage=stage, factor=factor, solve=solve)
+            common=common, solve=solve)
 
     records = []
     A = P = res = None
@@ -587,10 +807,8 @@ def run_multisolve(n: int, b: int, wave_nums, consts=None,
         A = P = res = None  # noqa: F841
         _sync(dev)
         t0 = time.perf_counter()
-        F = sources_at(wn)
-        A, hm, _ = _assemble_stage(wn, C, alpha, **stage)
-        P = _factor_stage(A, hm, g_compress=g_compress, **factor)
-        del hm
+        F = sources_at(wn, C)
+        A, P = factor_at(wn, C, g_compress)
         _sync(dev)
         t1 = time.perf_counter()
         res = _msolve_stage(A, P, F, rtol, **solve)
@@ -602,18 +820,19 @@ def run_multisolve(n: int, b: int, wave_nums, consts=None,
     return records
 
 
-def _run_multisolve_amortized(wave_nums, const, alpha, sources_at, *, rtol,
-                              factor_stride, freq_anchor_every, key_cfg,
-                              common, stage, factor, solve):
+def _run_multisolve_amortized(wave_nums, const, sources_at, factor_at,
+                              assemble_at, *, rtol, b, factor_stride,
+                              freq_anchor_every, key_cfg, common, solve):
     """Amortized multi-frequency sweep (`run_multisolve`
     freq_anchor_every): factor anchors, omega-lerp the compressed sample
-    stacks in between.
+    stacks in between.  `sources_at(wn, C)`, `factor_at(wn, C, compress)`
+    and `assemble_at(wn, C)` are `run_multisolve`'s stages for its stencil.
 
     Frequencies are processed in ascending-omega order span by span; at
     most two anchor sample stacks (plus one lerped stack) are resident,
     ~3/stride of one dense G stack.  Records are returned in the caller's
     `wave_nums` order."""
-    dev = stage["device"]
+    dev = solve["device"]
     K = len(wave_nums)
     order = sorted(range(K), key=lambda i: wave_nums[i])
     anchor_pos = sorted({p for p in range(0, K, freq_anchor_every)}
@@ -622,7 +841,7 @@ def _run_multisolve_amortized(wave_nums, const, alpha, sources_at, *, rtol,
 
     def solve_and_record(idx, A, P, t0, t1, mode):
         wn = wave_nums[idx]
-        F = sources_at(wn)
+        F = sources_at(wn, const)
         res = _msolve_stage(A, P, F, rtol, **solve)
         _sync(dev)
         t2 = time.perf_counter()
@@ -636,9 +855,7 @@ def _run_multisolve_amortized(wave_nums, const, alpha, sources_at, *, rtol,
         wn_a = wave_nums[idx_a]
         _sync(dev)
         t0 = time.perf_counter()
-        A_a, hm, _ = _assemble_stage(wn_a, const, alpha, **stage)
-        P_a = _factor_stage(A_a, hm, g_compress=True, **factor)
-        del hm
+        A_a, P_a = factor_at(wn_a, const, True)
         _sync(dev)
         t1 = time.perf_counter()
         solve_and_record(idx_a, A_a, P_a, t0, t1, "factor")
@@ -651,9 +868,9 @@ def _run_multisolve_amortized(wave_nums, const, alpha, sources_at, *, rtol,
                 tau = (wn_i - wn_p) / max(wn_a - wn_p, 1e-30)
                 _sync(dev)
                 t0 = time.perf_counter()
-                A_i, _, _ = _assemble_a_stage(wn_i, const, alpha, **stage)
+                A_i = assemble_at(wn_i, const)
                 P_i = _precond_from_samples_stage(
-                    A_i, P_p, P_a, tau, b=stage["b"], g_stride=factor_stride)
+                    A_i, P_p, P_a, tau, b=b, g_stride=factor_stride)
                 _sync(dev)
                 t1 = time.perf_counter()
                 solve_and_record(idx, A_i, P_i, t0, t1, "omega_lerp")

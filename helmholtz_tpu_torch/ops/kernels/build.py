@@ -36,7 +36,8 @@ _SIGNATURES = {
                           ctypes.c_int, ctypes.c_int, _P],
     "hh_sweep": [ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_longlong,
                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P],
+                 ctypes.c_longlong, _P, _P, _P, _P, ctypes.c_int, _P, _P, _P,
+                 _P],
 }
 
 

@@ -7,6 +7,10 @@ Replaces the TPU kernel `_kernel` / `pallas_sweep` of the JAX package's
     bwd      : out[j] = G[j] @ (u[j] - c[j] * next)         (corrected D2)
     bwd_sub  : out[j] = u[j] - G[j] @ (u[j] + c[j] * next)  (as-shipped D2)
 
+where c[k] is a diagonal (a row of n, the 5-point scheme's inter-layer
+coupling) or a tridiagonal matrix (three rows [sub, diag, sup] of n, the
+9-point scheme's).
+
 Bound: bytes.  Each step streams one n x n complex panel of G (two real
 planes, float32 or bfloat16) against R vectors that depend on the step
 before.  The kernel splits a panel's rows over the whole card (one warp per
@@ -18,9 +22,9 @@ Layout: the planes are (Mg, n, ld) with row pitch `g_ld(n)` elements and
 zero pad columns, so every row starts 16-byte aligned.
 
 Ported: modes fwd / bwd / bwd_sub; dense G, one shared panel (Mg == 1) and
-sample-compressed G (lerp: `g_lo`, `g_w`); diagonal coupling; R >= 1
-right-hand sides on one stream of G; float32 and bfloat16 G.  Still to be
-ported: tridiagonal coupling, which raises NotImplementedError.
+sample-compressed G (lerp: `g_lo`, `g_w`); diagonal and tridiagonal
+coupling; R >= 1 right-hand sides on one stream of G; float32 and bfloat16
+G.  That is every mode of the TPU kernel.
 
 `plain_sweep` is the plain PyTorch version (the loop form).  The wrapper
 takes it only for tensors on the CPU; on CUDA tensors it launches the kernel
@@ -42,9 +46,10 @@ MAX_WIDTH = 4
 MAX_SHARED_BYTES = 232448
 
 #: number of sweeps launched by `sweep` in this process, by (mode, number of
-#: right-hand sides in the launch, with lerp tables).  One sweep is one call
-#: of the C entry point, which enqueues S step kernels.  This is the one
-#: count kept; `launches`, `launches_by_mode`, `launches_by_width` and
+#: right-hand sides in the launch, with lerp tables, with tridiagonal
+#: coupling).  One sweep is one call of the C entry point, which enqueues S
+#: step kernels (and one more for fwd with tridiagonal coupling).  This is
+#: the one count kept; `launches`, `launches_by_mode`, `launches_by_width` and
 #: `launches_lerp` are read as attributes of the module and summed from it.
 launches_by_variant: dict = {}
 
@@ -53,8 +58,8 @@ def reset_counts() -> None:
     launches_by_variant.clear()
 
 
-def _count(mode: str, width: int, lerp: bool) -> None:
-    key = (mode, width, lerp)
+def _count(mode: str, width: int, lerp: bool, tri: bool) -> None:
+    key = (mode, width, lerp, tri)
     launches_by_variant[key] = launches_by_variant.get(key, 0) + 1
 
 
@@ -63,13 +68,13 @@ def __getattr__(name: str):
         return sum(c for k, c in launches_by_variant.items() if keep(*k))
 
     if name == "launches":
-        return total(lambda mode, width, lerp: True)
+        return total(lambda mode, width, lerp, tri: True)
     if name == "launches_lerp":
-        return total(lambda mode, width, lerp: lerp)
+        return total(lambda mode, width, lerp, tri: lerp)
     if name == "launches_by_mode":
-        return {m: total(lambda mode, width, lerp: mode == m) for m in MODES}
+        return {m: total(lambda mode, width, lerp, tri: mode == m) for m in MODES}
     if name == "launches_by_width":
-        return {w: total(lambda mode, width, lerp: width == w)
+        return {w: total(lambda mode, width, lerp, tri: width == w)
                 for w in range(1, MAX_WIDTH + 1)}
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
@@ -81,20 +86,19 @@ def g_ld(n: int) -> int:
 
 
 def _check_args(G_re, G_im, u, c, carry0, mode, g_lo, g_w):
-    """Shapes of one sweep; returns (S, R, n, shared, lerp)."""
+    """Shapes of one sweep; returns (S, R, n, shared, lerp).  The coupling
+    is tridiagonal exactly when c has rank 3."""
     if mode not in MODES:
         raise ValueError(f"unknown sweep mode {mode!r}")
-    if c.ndim == 3:
-        raise NotImplementedError(
-            "tridiagonal (9-point) coupling is not ported yet")
     if u.ndim not in (2, 3):
         raise ValueError(f"expected u of shape (S, n) or (S, R, n), got "
                          f"{tuple(u.shape)}")
     S, n = u.shape[0], u.shape[-1]
     R = u.shape[1] if u.ndim == 3 else 1
-    if c.shape != (S, n) or carry0.shape != u.shape[1:] or R < 1:
+    if (c.shape not in ((S, n), (S, 3, n)) or carry0.shape != u.shape[1:]
+            or R < 1):
         raise ValueError(f"expected u (S, n) with carry0 (n,), or u (S, R, n)"
-                         f" with carry0 (R, n), and c (S, n); got "
+                         f" with carry0 (R, n), and c (S, n) or (S, 3, n); got "
                          f"{tuple(u.shape)}, {tuple(carry0.shape)}, "
                          f"{tuple(c.shape)}")
     if (G_re.ndim != 3 or G_re.shape != G_im.shape
@@ -128,11 +132,14 @@ def plain_sweep(G_re, G_im, u, c, carry0, *, mode: str, g_lo=None,
     of the kernel, for the same arguments as `sweep`.  The stored planes
     (any float type) are widened to the vector's float type and multiplied
     at full precision; the float32 lerp weights are widened likewise and
-    applied to the two panels' products, not to the panels."""
+    applied to the two panels' products, not to the panels.  A tridiagonal
+    coupling is applied with shifted slices, which never touch sub[0] and
+    sup[n-1]."""
     S, R, n, shared, lerp = _check_args(G_re, G_im, u, c, carry0, mode,
                                         g_lo, g_w)
     rd = u.real.dtype
     batched = u.ndim == 3
+    tri = c.ndim == 3
     U = u if batched else u[:, None]
     out = torch.empty_like(U)
     if lerp:
@@ -153,15 +160,24 @@ def plain_sweep(G_re, G_im, u, c, carry0, *, mode: str, g_lo=None,
             RV, IV = planes_dot(0 if shared else k, V)
         return torch.complex(RV[:, :R] - IV[:, R:], RV[:, R:] + IV[:, :R]).T
 
+    def couple(ck, v):
+        """c[k] applied to the (R, n) rows v."""
+        if not tri:
+            return ck * v
+        y = ck[1] * v
+        y[:, 1:] += ck[0, 1:] * v[:, :-1]
+        y[:, :-1] += ck[2, :-1] * v[:, 1:]
+        return y
+
     other = carry0 if batched else carry0[None]
     steps = range(S) if mode == "fwd" else range(S - 1, -1, -1)
     for k in steps:
         if mode == "fwd":
-            new = U[k] - c[k] * g_matvec(k, other)
+            new = U[k] - couple(c[k], g_matvec(k, other))
         elif mode == "bwd":
-            new = g_matvec(k, U[k] - c[k] * other)
+            new = g_matvec(k, U[k] - couple(c[k], other))
         else:
-            new = U[k] - g_matvec(k, U[k] + c[k] * other)
+            new = U[k] - g_matvec(k, U[k] + couple(c[k], other))
         out[k] = new
         other = new
     return out if batched else out[:, 0]
@@ -212,7 +228,11 @@ def sweep(G_re, G_im, u, c, carry0, *, mode: str, g_lo=None,
                  rows are processed last to first; `c` must have its top
                  row zeroed.
     c          : (S, n) complex diagonal inter-layer coupling rows, shared
-                 by the right-hand sides.
+                 by the right-hand sides; or (S, 3, n), the [sub, diag, sup]
+                 rows of a TRIDIAGONAL coupling (9-point scheme):
+                 (c[k] v)[i] = sub[i] v[i-1] + diag[i] v[i] + sup[i] v[i+1].
+                 sub[:, 0] and sup[:, n-1] are never read.  Which of the two
+                 is meant follows from the rank.
     carry0     : (n,) or (R, n) complex initial carry (fwd: the row below;
                  bwd: zeros).
     g_lo, g_w  : sample-compressed G.  G holds SAMPLES of the stack and
@@ -238,6 +258,12 @@ def sweep(G_re, G_im, u, c, carry0, *, mode: str, g_lo=None,
     check_kernel_args(G_re, G_im, u, c, carry0, g_lo, g_w)
     out = torch.empty_like(u)
     ld = g_ld(n)
+    tri = c.ndim == 3
+    # fwd with tridiagonal coupling parks each step's raw product in one of
+    # two rows, for the next step to finish (see the source note)
+    scratch = (torch.empty((2, min(R, MAX_WIDTH), n), dtype=u.dtype,
+                           device=u.device)
+               if tri and mode == "fwd" else None)
     lib = build.library()
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -250,8 +276,9 @@ def sweep(G_re, G_im, u, c, carry0, *, mode: str, g_lo=None,
                 ld, n, S, width, R * n,
                 g_lo.data_ptr() if lerp else None,
                 g_w.data_ptr() if lerp else None,
-                u.data_ptr() + skip, c.data_ptr(), carry0.data_ptr() + skip,
-                out.data_ptr() + skip, stream)
+                u.data_ptr() + skip, c.data_ptr(), int(tri),
+                carry0.data_ptr() + skip, out.data_ptr() + skip,
+                scratch.data_ptr() if scratch is not None else None, stream)
             build.check(status, f"sweep[{mode}]")
-            _count(mode, width, lerp)
+            _count(mode, width, lerp, tri)
     return out

@@ -165,12 +165,16 @@ def _clamped_chunk(setup_chunk: int, n: int) -> int:
     return max(4, min(setup_chunk, max(16, SETUP_WORKSPACE_WORDS // (n * n))))
 
 
-def factor_corner_inverses(hm: Stencil5, *, g_dtype,
+def factor_corner_inverses(hm, *, g_dtype,
                            setup_chunk: int = DEFAULT_SETUP_CHUNK,
-                           stride: int = 1):
-    """Factor a batched subgrid family (Stencil5 fields (M, b, n)) into its
+                           stride: int = 1, corner_fn=None):
+    """Factor a batched subgrid family (stencil fields (M, b, n)) into its
     corner-inverse stack: the pair of real planes (G_re, G_im), each
     (M, n, ld) with ld = g_ld(n), pad columns zero, stored as `g_dtype`.
+
+    `corner_fn` maps a chunk of the family to its (chunk, n, n) corner
+    inverses; the default is the 5-point recursion `_schur_corner_inverse`,
+    and the 9-point scheme passes its own (`precond.sweeping9`).
 
     The planes are allocated once and filled chunk by chunk IN PLACE: a
     stacked result would transiently double the multi-GB stack.
@@ -191,9 +195,10 @@ def factor_corner_inverses(hm: Stencil5, *, g_dtype,
     sample stack at working precision while interpolating.
     """
     M, _, n = hm.cc.shape
+    corner_fn = corner_fn or _schur_corner_inverse
     if stride > 1 and M > stride:
         return _factor_strided(hm, g_dtype=g_dtype, setup_chunk=setup_chunk,
-                               stride=stride)
+                               stride=stride, corner_fn=corner_fn)
     chunk = _clamped_chunk(setup_chunk, n)
     ld = g_ld(n)
     dev = hm.cc.device
@@ -201,14 +206,15 @@ def factor_corner_inverses(hm: Stencil5, *, g_dtype,
     G_im = torch.zeros((M, n, ld), dtype=g_dtype, device=dev)
     for start in range(0, M, chunk):
         stop = min(start + chunk, M)
-        T = _schur_corner_inverse(hm.map(lambda f: f[start:stop]))
+        T = corner_fn(hm.map(lambda f: f[start:stop]))
         G_re[start:stop, :, :n] = T.real
         G_im[start:stop, :, :n] = T.imag
         del T
     return G_re, G_im
 
 
-def _factor_strided(hm: Stencil5, *, g_dtype, setup_chunk: int, stride: int):
+def _factor_strided(hm, *, g_dtype, setup_chunk: int, stride: int,
+                    corner_fn):
     """Strided factorization: factor every stride-th subgrid exactly, lerp
     the corner inverses in between."""
     M = hm.cc.shape[0]
@@ -220,7 +226,8 @@ def _factor_strided(hm: Stencil5, *, g_dtype, setup_chunk: int, stride: int):
     # samples at working precision, already at the padded pitch (zero pads
     # lerp to zero)
     Ts_re, Ts_im = factor_corner_inverses(hm_s, g_dtype=wf,
-                                          setup_chunk=setup_chunk)
+                                          setup_chunk=setup_chunk,
+                                          corner_fn=corner_fn)
     return expand_strided_samples(Ts_re, Ts_im, M=M, stride=stride,
                                   g_dtype=g_dtype, setup_chunk=setup_chunk)
 
@@ -293,6 +300,31 @@ def _block_thomas_solve_multi(T, cs, cn, rhs):
     return u
 
 
+def _check_g_tables(P) -> None:
+    """What a factored state (5-point or 9-point) must hold about its lerp
+    tables: both or neither, and indices inside the sample stack."""
+    if bool(P.g_stride) != (P.g_lo is not None) \
+            or (P.g_lo is None) != (P.g_w is None):
+        raise ValueError("g_stride > 0 goes with both lerp tables, "
+                         "g_stride == 0 with neither")
+    if P.g_stride:
+        # the sweep kernel reads panels g_lo and g_lo + 1 unchecked
+        lo_min, lo_max = P.g_lo.min().item(), P.g_lo.max().item()
+        if lo_min < 0 or lo_max > P.G_re.shape[0] - 2:
+            raise ValueError(
+                f"g_lo runs over {lo_min}..{lo_max}; a stack of "
+                f"{P.G_re.shape[0]} samples takes 0.."
+                f"{P.G_re.shape[0] - 2}")
+
+
+def _g_tables(M: int, g_stride: int, dev) -> dict:
+    """The lerp-table fields of a state whose planes hold the
+    `sample_positions(M, g_stride)` samples, on device `dev`."""
+    g_w, g_lo = compress_tables(M, g_stride)
+    return dict(g_w=torch.from_numpy(g_w).to(dev),
+                g_lo=torch.from_numpy(g_lo).to(dev), g_stride=g_stride)
+
+
 @dataclasses.dataclass(frozen=True)
 class SweepingPreconditioner:
     """Factored state of the moving-PML sweeping preconditioner.
@@ -326,18 +358,7 @@ class SweepingPreconditioner:
     g_stride: int = 0
 
     def __post_init__(self):
-        if bool(self.g_stride) != (self.g_lo is not None) \
-                or (self.g_lo is None) != (self.g_w is None):
-            raise ValueError("g_stride > 0 goes with both lerp tables, "
-                             "g_stride == 0 with neither")
-        if self.g_stride:
-            # the sweep kernel reads panels g_lo and g_lo + 1 unchecked
-            lo_min, lo_max = self.g_lo.min().item(), self.g_lo.max().item()
-            if lo_min < 0 or lo_max > self.G_re.shape[0] - 2:
-                raise ValueError(
-                    f"g_lo runs over {lo_min}..{lo_max}; a stack of "
-                    f"{self.G_re.shape[0]} samples takes 0.."
-                    f"{self.G_re.shape[0] - 2}")
+        _check_g_tables(self)
 
     @property
     def grid_shape(self):
@@ -434,12 +455,9 @@ def preconditioner_from_samples(A: Stencil5, b: int, G_re, G_im, *,
     (b small inversions); the O(M/stride) corner-inverse factorizations, the
     setup giant, are not re-paid."""
     M = A.cc.shape[0] - b
-    g_w, g_lo = compress_tables(M, g_stride)
-    dev = G_re.device
     return _with_hf(A, b, G_re, G_im, hf_full_coupling=hf_full_coupling,
                     d2_replace=d2_replace,
-                    g_w=torch.from_numpy(g_w).to(dev),
-                    g_lo=torch.from_numpy(g_lo).to(dev), g_stride=g_stride)
+                    **_g_tables(M, g_stride, G_re.device))
 
 
 @torch.no_grad()

@@ -176,8 +176,8 @@ def test_wrappers_raise_on_what_is_not_ported(factored):
     with pytest.raises(ValueError, match="carry0"):
         k2.sweep(P_t.G_re, P_t.G_im, u[:, None, :].expand(-1, 2, -1), c,
                  carry0, mode="bwd")
-    with pytest.raises(NotImplementedError, match="tridiagonal"):
-        k2.sweep(P_t.G_re, P_t.G_im, u, c[:, None, :].expand(-1, 3, -1),
+    with pytest.raises(ValueError, match=r"\(S, 3, n\)"):   # two rows
+        k2.sweep(P_t.G_re, P_t.G_im, u, c[:, None, :].expand(-1, 2, -1),
                  carry0, mode="bwd")
     with pytest.raises(ValueError, match="mode"):
         k2.sweep(P_t.G_re, P_t.G_im, u, c, carry0, mode="sideways")

@@ -191,12 +191,13 @@ def test_sweep_wrapper_checks_and_counters(factored):
     assert k2.launches == 0 and k2.launches_lerp == 0
     assert not k2.launches_by_variant and not any(
         k2.launches_by_width.values())
-    k2._count("bwd", 4, True)
-    k2._count("fwd", 2, False)
+    k2._count("bwd", 4, True, False)
+    k2._count("fwd", 2, False, True)
     assert (k2.launches, k2.launches_lerp) == (2, 1)
     assert k2.launches_by_width == {1: 0, 2: 1, 3: 0, 4: 1}
-    assert k2.launches_by_variant == {("bwd", 4, True): 1,
-                                      ("fwd", 2, False): 1}
+    assert k2.launches_by_mode == {"fwd": 1, "bwd": 1, "bwd_sub": 0}
+    assert k2.launches_by_variant == {("bwd", 4, True, False): 1,
+                                      ("fwd", 2, False, True): 1}
     k2.reset_counts()
     assert k2.launches == 0 and not k2.launches_by_variant
 
@@ -551,7 +552,7 @@ def test_run_multisolve_guards():
     with pytest.raises(ValueError, match="2 consts for 3"):
         run(31, 5, [2.0, 2.1, 2.2], consts=[20.0, 21.0])
     for kw, name in ((dict(mesh_devices=4), "distributed"),
-                     (dict(stencil="9pt"), "9-point"),
+                     (dict(mesh_devices=4, stencil="9pt"), "item 16"),
                      (dict(precond="recompute"), "recompute")):
         with pytest.raises(NotImplementedError, match=name):
             run(31, 5, [2.0], **kw)

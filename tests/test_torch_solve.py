@@ -273,8 +273,9 @@ def test_run_solver_options():
     assert packed.converged and packed.config["g_compress"]
     assert packed.iterations == expanded.iterations
     for kw, name in ((dict(method="bicgstab"), "solver-extras"),
-                     (dict(stencil="9pt"), "5-point"),
-                     (dict(precond="exact"), "moving_pml")):
+                     (dict(method="bicgstab", stencil="9pt"), "item 13"),
+                     (dict(precond="recompute"), "item 15"),
+                     (dict(precond="exact"), "item 14")):
         with pytest.raises(NotImplementedError, match=name):
             tdriver.run_solver(15, 4, 1.0, 20.0, device="cpu", **kw)
     with pytest.raises(ValueError, match="precision"):

@@ -12,6 +12,7 @@ from helmholtz_tpu_torch import convert
 from helmholtz_tpu_torch.fd import stencil as tstencil
 
 FIELDS = ("cc", "cw", "ce", "cs", "cn")
+FIELDS9 = FIELDS + ("csw", "cse", "cnw", "cne")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -36,7 +37,8 @@ def to_np(x):
 
 
 def assert_stencils_close(t_stencil, j_stencil, rtol, what=""):
-    for name in FIELDS:
+    """Every field of a Stencil5, or of a Stencil9, against its JAX twin."""
+    for name in (FIELDS9 if hasattr(j_stencil, "csw") else FIELDS):
         got = to_np(getattr(t_stencil, name))
         ref = to_np(getattr(j_stencil, name))
         assert got.shape == ref.shape, (what, name, got.shape, ref.shape)
@@ -91,3 +93,51 @@ def random_grid(seed, shape, dtype=np.complex128):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal(shape)
             + 1j * rng.standard_normal(shape)).astype(dtype)
+
+
+def both_problems9(n, b, wave_num, const, problem="c1_f1",
+                   fidelity="corrected", gamma=2.0 / 3.0, rows=None):
+    """The 9-point scheme of one config in complex128 on both sides:
+    (cfg, jax (A9, hm9, c_full, f_grid), torch (A9, hm9, c_full, f_grid)).
+    `rows` restricts both subgrid families to those grid rows."""
+    jcfg = hj.HelmholtzConfig(n=n, b=b, wave_num=wave_num, const=const,
+                              fidelity=fidelity)
+    tcfg = ht.HelmholtzConfig(n=n, b=b, wave_num=wave_num, const=const,
+                              fidelity=fidelity)
+    jprob = hj.assemble_problem(jcfg, problem, complex_dtype=jnp.complex128)
+    tprob = ht.assemble_problem(tcfg, problem, complex_dtype=torch.complex128,
+                                device="cpu")
+    sides = []
+    for mod, cfg, prob, cd, as_rows in (
+            (jstencil, jcfg, jprob, jnp.complex128, jnp.asarray),
+            (tstencil, tcfg, tprob, torch.complex128, torch.as_tensor)):
+        args = (n, b, const, cfg.eta, cfg.omega, cfg.h, prob.c_full)
+        kw = dict(gamma=gamma, fidelity=fidelity, complex_dtype=cd)
+        A9 = mod.build_a_stencil9(*args, **kw)
+        hm9 = mod.build_hm_stencils9(
+            *args, **kw, rows=None if rows is None else as_rows(rows))
+        sides.append((A9, hm9, prob.c_full, prob.f_grid))
+    return tcfg, sides[0], sides[1]
+
+
+def stencil9_to_torch(j_stencil):
+    """The port's Stencil9 (CPU) from a JAX-assembled one."""
+    return convert.stencil9_from_numpy(
+        *(to_np(getattr(j_stencil, f)) for f in FIELDS9), device="cpu")
+
+
+def precond9_to_torch(P, n, *, g_dtype=None):
+    """The port's SweepingPreconditioner9 (CPU) from a JAX-factored one; a
+    reduced-precision G or TF is passed through float32, which holds every
+    bfloat16 value exactly, and TF is widened to the coupling rows' type as
+    the port keeps it.  A sample-compressed stack keeps its tables."""
+    g = lambda a: np.asarray(jnp.asarray(a, jnp.float32)
+                             if a.dtype == jnp.bfloat16 else a)
+    cd = P.a_l.to_np().dtype
+    TF = (g(P.TF.re) + 1j * g(P.TF.im)).astype(cd)
+    return convert.preconditioner9_from_numpy(
+        g(P.G.re), g(P.G.im), TF, P.hf_l.to_np(), P.hf_u.to_np(),
+        P.a_l.to_np(), P.a_u.to_np(), P.b, P.d2_replace, n, g_dtype=g_dtype,
+        device="cpu",
+        **(dict(g_w=np.asarray(P.g_w), g_lo=np.asarray(P.g_lo),
+                g_stride=P.g_stride) if P.g_stride else {}))
