@@ -27,10 +27,19 @@ tensor code):
                 G, an anchor factorization every second frequency;
   precision9    run_solver at n = 511, rtol 1e-6, precision="ir-df32";
 
+and the exact path:
+
+  exact         run_solver at n = 511 with precond="exact" (511 layer
+                inverses, a 1.07 GB stack);
+  exact_residual  its residual recomputed on the card through the
+                block-sparse product (BSR) of the operator, `bsr_matvec`,
+                and held against the stencil product;
+
 and checks by launch counts, set to zero before each path and read after it,
-that each path went through its kernel variants.  Any failed phase ends the
-script with a non-zero exit code; it needs a CUDA device and exits with code
-1 without one.
+that each path went through its kernel variants.  Every factoring path runs
+its batched inverses through the blocked Gauss-Jordan inverse and its panel
+kernel.  Any failed phase ends the script with a non-zero exit code; it
+needs a CUDA device and exits with code 1 without one.
 
 Every phase prints one JSON line.  The last three lines are the kernel
 table, the card's name and power limit, and the verdict.
@@ -43,20 +52,25 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 import helmholtz_tpu_torch as ht
 from helmholtz_tpu_torch.fd import stencil as fd_stencil
+from helmholtz_tpu_torch.ops import dense
 from helmholtz_tpu_torch.ops import spmv as plain_spmv
 from helmholtz_tpu_torch.ops.kernels import build
+from helmholtz_tpu_torch.ops.kernels import bsr_spmm as k4
+from helmholtz_tpu_torch.ops.kernels import gj_inverse as k3
 from helmholtz_tpu_torch.ops.kernels import spmv_stencil as k1
 from helmholtz_tpu_torch.ops.kernels import sweep as k2
+from helmholtz_tpu_torch.ops.sparse_algebra import stencil_to_bsr
 from helmholtz_tpu_torch.precond import sweeping, sweeping9
 
 # Published peaks of one H100 SXM at its full power limit: device memory
-# rate and the float32 rate outside the tensor cores (both kernels do
+# rate and the float32 rate outside the tensor cores (every kernel does
 # float32 FMA on CUDA cores).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -102,11 +116,36 @@ MAX_ITERS_NINE = 5            # oracle / reference count + 1
 MAX_ITERS_NINE_PRECISE = 7    # oracle + 1
 APPLY9 = dict(n=255, b=19, wave_num=32.0, const=60.0)   # oracle9_iters_n255
 
+# The exact path: ORACLE.json's n = 511 5-point configuration, uncut.  The
+# exact factorization is a perfect preconditioner: at most 2 iterations, the
+# bound the reference package's own test pins for it.
+EXACT = dict(n=511, b=12, wave_num=64.0, const=81.0, problem="c1_f1",
+             precond="exact", rtol=1e-3)
+MAX_ITERS_EXACT = 2
+
+# K3 at the batches of the paths (1: the exact path's layer inverses and
+# H_F's; 146: the samples of the n = 1023 setup; 1000: a larger chunk) and
+# panel widths 33 (odd), 64 (the blocked inverse's base case at every size
+# used) and 128 (the kernel's largest)
+K3_BATCHES = (1, 146, 1000)
+K3_WIDTHS = (33, 64, 128)
+K3_MAIN = (146, 64)          # the shape timed for the kernel table
+K4_WIDTHS = (1, 4, 16)       # columns of X on the n = 511 operator
+
 # Tolerances, relative to the largest entry of the plain version's result;
 # both were tightened to about ten times what the H100 showed.
 K1_TOL = 2e-6    # five float32 FMAs in another order (observed 1.5e-7)
 K2_TOL = 5e-6    # float32 row sums of n terms in another order, carried
                  # through up to n - b steps (observed up to 4.0e-7)
+K3_TOL = 1e-5    # k float32 rank-1 steps in another order, reciprocal
+                 # times row in place of a division, on matrices of
+                 # condition number about 3 (observed up to 2.8e-6 at k=128)
+K4_TOL = 5e-6    # float32 sums of bn products in another order (observed
+                 # up to 5.1e-7)
+INV_TOL = 1e-5   # ||X A - I|| / ||I|| of a full-float32 inverse of the
+                 # n = 1023 Schur blocks (observed 7.6e-7 for the blocked
+                 # Gauss-Jordan route, 4.2e-7 for pivoted LU; a panel
+                 # product in TF32 would round near 5e-4)
 
 
 def say(phase, **fields):
@@ -323,6 +362,178 @@ def check_k2(G_re, G_im, mode, gen, timed, rows=None, library_step=False,
     return rec
 
 
+# -- K3 -----------------------------------------------------------------------
+
+def gj_matrices(B, k, gen, dev):
+    """Random complex64 (B, k, k) matrices that need no pivoting: the
+    identity plus a random part of spectral norm about 0.5."""
+    eye = torch.eye(k, dtype=torch.complex64, device=dev)
+    return eye + randc((B, k, k), gen, dev) * (0.25 / math.sqrt(k))
+
+
+def check_k3(B, k, gen, flush, timed):
+    A = gj_matrices(B, k, gen, flush.device)
+    got = k3.gj_inverse(A)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = k3.gauss_jordan_inverse_unpivoted(A)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, rel = rel_err(got, ref)
+    if not (rel <= K3_TOL and math.isfinite(rel)):
+        fail(f"gj_inverse ({B}, {k}, {k}): relative error {rel:.3e} > "
+             f"{K3_TOL}")
+    rec = {"batch": B, "k": k, "max_abs_err": err, "rel_err": rel,
+           "tol": K3_TOL}
+    if timed:
+        rec["bound_ms"], rec["bound_by"] = bound(16 * k * k * B,
+                                                 8 * k ** 3 * B)
+        rec["ms"] = time_ms(lambda: k3.gj_inverse(A), 10, flush)
+        rec["plain_ms"] = plain_ms
+        rec["library_ms"] = time_ms(lambda: torch.linalg.inv(A), 10, flush)
+        rec["library"] = "torch.linalg.inv on the same batch"
+    return rec
+
+
+def schur_blocks(n, b, stride, count):
+    """The matrices that the n-point setup inverts at its last layer, S_{b-1}
+    = H_{b-1,b-1} - C T_{b-2} C', for the first `count` subgrid samples of a
+    stride-`stride` setup of the c1_f1 problem (FULL's operator)."""
+    cfg = ht.HelmholtzConfig(n=n, b=b, wave_num=FULL["wave_num"],
+                             const=FULL["const"])
+    prob = ht.assemble_problem(cfg, FULL["problem"])
+    rows = b + torch.as_tensor(sweeping.sample_positions(n - b, stride)[
+        :count], device=prob.c_full.device)
+    hm = fd_stencil.build_hm_stencils_rows(
+        rows, n, b, cfg.const, cfg.eta, cfg.omega, cfg.h, prob.c_full,
+        fidelity="corrected", complex_dtype=torch.complex64)
+    T = dense.batched_inverse(sweeping._dense_tridiag(
+        hm.cw[:, 0], hm.cc[:, 0], hm.ce[:, 0]))
+    for l in range(1, b):
+        S = T * (-hm.cs[:, l, :, None])
+        S.mul_(hm.cn[:, l - 1, None, :])
+        sweeping._add_tridiag_(S, hm.cw[:, l], hm.cc[:, l], hm.ce[:, l])
+        if l == b - 1:
+            return S
+        T = dense.batched_inverse(S)
+
+
+def inverse_residual(X, A):
+    """||X A - I||_F / ||I||_F over a batch, one matrix at a time."""
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    sq = sum(torch.linalg.matrix_norm(X[i] @ A[i] - eye).item() ** 2
+             for i in range(A.shape[0]))
+    return math.sqrt(sq / (A.shape[0] * n))
+
+
+def check_blocked_inverse(flush):
+    """The setup's batched inverse at its main shape, both routes."""
+    n = FULL["n"]
+    Mg = n - FULL["b"]
+    B = len(sweeping.sample_positions(Mg, LERP_STRIDE))
+    S = schur_blocks(n, FULL["b"], LERP_STRIDE, B)
+    rec = {"batch": B, "n": n, "tol": INV_TOL}
+    for route, pivoted in (("gauss_jordan", False), ("linalg_inv", True)):
+        X = dense.batched_inverse(S, pivoted=pivoted)
+        torch.cuda.synchronize()
+        rec[f"{route}_residual"] = inverse_residual(X, S)
+        del X
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rec[f"{route}_ms_per_inverse"] = time_ms(
+            lambda: dense.batched_inverse(S, pivoted=pivoted), 3, flush) / B
+        rec[f"{route}_workspace_bytes"] = (torch.cuda.max_memory_allocated()
+                                           - base)
+        # the operations of one inverse, 8 n^3, at the achieved rate
+        rec[f"{route}_tflops"] = 8 * n ** 3 / (
+            rec[f"{route}_ms_per_inverse"] * 1e-3) / 1e12
+    for route in ("gauss_jordan", "linalg_inv"):
+        if not rec[f"{route}_residual"] < INV_TOL:
+            fail(f"blocked_inverse: {route} residual "
+                 f"{rec[f'{route}_residual']:.3e} >= {INV_TOL}")
+    return rec
+
+
+# -- K4 -----------------------------------------------------------------------
+
+def bsr_as_csr(A):
+    """The stored entries of a BSR matrix, explicit zeros included, as a
+    torch sparse CSR matrix: the library yardstick."""
+    bm, bn = A.blocksize
+    ip = A.indptr.tolist()
+    vals, cols, lens = [], [], []
+    for i in range(len(ip) - 1):
+        blk = A.data[ip[i]:ip[i + 1]]                 # (c, bm, bn)
+        c = blk.shape[0]
+        vals.append(blk.transpose(0, 1).reshape(-1))
+        cc = (A.indices[ip[i]:ip[i + 1], None].long() * bn
+              + torch.arange(bn, device=A.device)).reshape(-1)
+        cols.append(cc.expand(bm, c * bn).reshape(-1))
+        lens.append(torch.full((bm,), c * bn, device=A.device))
+    crow = torch.cat([torch.zeros(1, dtype=torch.int64, device=A.device),
+                      torch.cat(lens).cumsum(0)])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")      # "sparse CSR support is beta"
+        return torch.sparse_csr_tensor(crow.int(), torch.cat(cols).int(),
+                                       torch.cat(vals), A.shape)
+
+
+def random_bsr(nbr, nbc, bm, bn, gen, dev):
+    """A random complex64 BSR matrix with about 40% of its blocks stored and
+    block row 3 empty."""
+    rng = np.random.default_rng(int(torch.randint(1 << 30, (1,),
+                                                  generator=gen, device=dev)))
+    keep = rng.random((nbr, nbc)) < 0.4
+    keep[3, :] = False
+    keep[0, 0] = True
+    br, bc = np.nonzero(keep)
+    data = randc((br.shape[0], bm, bn), gen, dev)
+    indptr = np.concatenate([[0], np.cumsum(keep.sum(axis=1))])
+    return ht.BSR(data, torch.as_tensor(bc, dtype=torch.int32, device=dev),
+                  torch.as_tensor(indptr, dtype=torch.int32, device=dev),
+                  (nbr * bm, nbc * bn), (bm, bn))
+
+
+def check_k4(A, K, gen, flush, timed, library=None):
+    X = randc((A.shape[1], K), gen, A.device)
+    got = k4.bsr_matmat(A, X)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = k4.plain_bsr_matmat(A, X)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, rel = rel_err(got, ref)
+    bm, bn = A.blocksize
+    what = f"bsr_matmat blocks {A.data.shape[0]} x ({bm}, {bn}), K={K}"
+    if not (rel <= K4_TOL and math.isfinite(rel)):
+        fail(f"{what}: relative error {rel:.3e} > {K4_TOL}")
+    rec = {"nblocks": A.data.shape[0], "blocksize": [bm, bn], "K": K,
+           "max_abs_err": err, "rel_err": rel, "tol": K4_TOL}
+    if timed:
+        stored = A.data.numel()
+        rec["bound_ms"], rec["bound_by"] = bound(
+            8 * (stored + A.shape[1] * K + A.shape[0] * K)
+            + 4 * (A.data.shape[0] + A.indptr.shape[0]),
+            8 * stored * K)
+        rec["ms"] = time_ms(lambda: k4.bsr_matmat(A, X), 5, flush)
+        rec["plain_ms"] = plain_ms
+        rec["library_ms"] = None
+        if library is not None:
+            rec["library"] = "torch sparse CSR (stored entries) @ X"
+            try:
+                lib = library @ X
+            except RuntimeError as e:      # a yardstick only: record why
+                rec["library_error"] = str(e)[:300]
+                return rec
+            _, lib_rel = rel_err(lib, ref)
+            if not lib_rel <= 1e-4:
+                fail(f"the CSR yardstick disagrees: {lib_rel:.3e}")
+            rec["library_ms"] = time_ms(lambda: library @ X, 5, flush)
+    return rec
+
+
 # -- solves -------------------------------------------------------------------
 
 def variant_key(mode, width, lerp, tri=False):
@@ -333,14 +544,15 @@ def variant_key(mode, width, lerp, tri=False):
 def counted(fn):
     """Run fn() with every launch count set to zero just before and read
     just after; also the peak device memory of the run."""
-    k1.reset_counts()
-    k2.reset_counts()
+    for k in (k1, k2, k3, k4):
+        k.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     out = fn()
     torch.cuda.synchronize()
-    # the wrapper counts sweeps by (mode, width, lerp, tri); its totals by mode,
-    # by width and with lerp tables are sums over that one count
-    counts = {"stencil_matvec": k1.launches, "sweep": k2.launches, **{
+    # the sweep wrapper counts by (mode, width, lerp, tri); its totals by
+    # mode, by width and with lerp tables are sums over that one count
+    counts = {"stencil_matvec": k1.launches, "sweep": k2.launches,
+              "gj_inverse": k3.launches, "bsr_matmat": k4.launches, **{
                   f"sweep_{m}": c for m, c in k2.launches_by_mode.items()},
               "sweep_lerp": k2.launches_lerp,
               "sweep_by_width": {str(w): c for w, c
@@ -350,11 +562,14 @@ def counted(fn):
     return out, counts, torch.cuda.max_memory_allocated()
 
 
+def solve_with(cfg):
+    return ht.run_solver(cfg["n"], cfg["b"], cfg["wave_num"], cfg["const"],
+                         **{k: v for k, v in cfg.items()
+                            if k not in ("n", "b", "wave_num", "const")})
+
+
 def counted_solve(cfg):
-    return counted(lambda: ht.run_solver(
-        cfg["n"], cfg["b"], cfg["wave_num"], cfg["const"],
-        **{k: v for k, v in cfg.items()
-           if k not in ("n", "b", "wave_num", "const")}))
+    return counted(lambda: solve_with(cfg))
 
 
 def batched_launches(iteration_lists, lerp, restart=20, tri=False):
@@ -428,12 +643,29 @@ def check_multisolve(name, cfg, recs, counts, peak, lerp, modes=None,
     top = variant_key("bwd", cfg["n_sources"], lerp, tri)
     if counts["sweep_variants"].get(top, 0) < 2:
         fail(f"{name}: the sweeps did not go through {top}")
+    check_setup_launches(name, counts)
+
+
+def check_setup_launches(name, counts):
+    """Every factoring path inverts through the blocked Gauss-Jordan
+    inverse, so its panel kernel ran; no path but the exact one runs the
+    BSR product."""
+    if counts["gj_inverse"] < 1:
+        fail(f"{name}: the setup launched no Gauss-Jordan kernel")
+    if counts["bsr_matmat"] != 0:
+        fail(f"{name}: {counts['bsr_matmat']} BSR launches")
 
 
 def check_solve(name, cfg, rep, counts, peak, max_iters, exact_iters=None,
                 residual_below=1e-3, applies_per_call=1):
     """`applies_per_call`: 2 when the preconditioner is refined once."""
     tri = cfg.get("stencil") == "9pt"
+    exact = cfg.get("precond") == "exact"
+    say(name, iterations=rep.iterations, converged=rep.converged,
+        true_residual=rep.true_residual, residual_norm=rep.residual_norm,
+        init_time_s=rep.init_time, solve_time_s=rep.solve_time,
+        peak_memory_bytes=peak, factor_stride=rep.config["factor_stride"],
+        launches=counts, history=[float(h) for h in rep.history])
     restart = cfg.get("restart", 20)
     cycles = max(1, -(-rep.iterations // restart))
     # x0 = 0: one apply for M b, one apply and one product per inner
@@ -441,11 +673,6 @@ def check_solve(name, cfg, rep, counts, peak, max_iters, exact_iters=None,
     # is one forward and one backward sweep
     want_k1 = rep.iterations + cycles
     want_apply = rep.iterations + cycles + 1
-    say(name, iterations=rep.iterations, converged=rep.converged,
-        true_residual=rep.true_residual, residual_norm=rep.residual_norm,
-        init_time_s=rep.init_time, solve_time_s=rep.solve_time,
-        peak_memory_bytes=peak, factor_stride=rep.config["factor_stride"],
-        launches=counts, history=[float(h) for h in rep.history])
     if not rep.converged:
         fail(f"{name}: not converged")
     if exact_iters is not None and rep.iterations != exact_iters:
@@ -472,7 +699,8 @@ def check_solve(name, cfg, rep, counts, peak, max_iters, exact_iters=None,
             fail(f"{name}: {counts['stencil_matvec']} stencil launches, "
                  f"{rep.iterations} iterations")
         for mode in ("fwd", "bwd"):
-            if counts[f"sweep_{mode}"] != want_apply:
+            # the exact preconditioner is a block solve, not a sweep
+            if counts[f"sweep_{mode}"] != (0 if exact else want_apply):
                 fail(f"{name}: {counts[f'sweep_{mode}']} {mode} sweeps, "
                      f"{want_apply} implied by {rep.iterations} iterations")
     if counts["sweep_bwd_sub"] != 0:
@@ -481,6 +709,7 @@ def check_solve(name, cfg, rep, counts, peak, max_iters, exact_iters=None,
              if k.endswith(",tri") != tri]
     if wrong or counts["sweep_lerp"]:
         fail(f"{name}: sweeps through {counts['sweep_variants']}")
+    check_setup_launches(name, counts)
 
 
 def main():
@@ -666,11 +895,46 @@ def main():
     del prob, A9, hm9, P
     torch.cuda.empty_cache()
 
+    # K3 at every batch x panel width, timed at all of them
+    k3_recs = []
+    for B, k in itertools.product(K3_BATCHES, K3_WIDTHS):
+        k3_recs.append(check_k3(B, k, gen, flush, timed=True))
+        say("kernel", name="gj_inverse", **k3_recs[-1])
+    rec_k3 = next(r for r in k3_recs if (r["batch"], r["k"]) == K3_MAIN)
+    # the blocked inverse that K3 serves, both routes on the same matrices
+    rec_inv = check_blocked_inverse(flush)
+    say("blocked_inverse", **rec_inv)
+    torch.cuda.empty_cache()
+
+    # K4 on the exact path's operator as BSR (n = 511: 1531 blocks of
+    # 511 x 511) at 1, 4 and 16 columns, then on random block-sparse
+    # matrices with an empty block row, square and ragged block sizes
+    cfg_x = ht.HelmholtzConfig(n=EXACT["n"], b=EXACT["b"],
+                               wave_num=EXACT["wave_num"],
+                               const=EXACT["const"])
+    A_bsr = stencil_to_bsr(ht.assemble_problem(cfg_x, EXACT["problem"]).A)
+    csr_x = bsr_as_csr(A_bsr)
+    k4_recs = []
+    for K in K4_WIDTHS:
+        k4_recs.append(check_k4(A_bsr, K, gen, flush, timed=True,
+                                library=csr_x))
+        say("kernel", name="bsr_matmat", **k4_recs[-1])
+    rec_k4 = k4_recs[0]
+    del A_bsr, csr_x
+    torch.cuda.empty_cache()
+    for (bm, bn), K in itertools.product(((64, 64), (128, 128), (48, 80)),
+                                         (16, 5, 1)):
+        A_rand = random_bsr(16, 12, bm, bn, gen, dev)
+        k4_recs.append(check_k4(A_rand, K, gen, flush, timed=True,
+                                library=bsr_as_csr(A_rand)))
+        say("kernel", name="bsr_matmat", **k4_recs[-1])
+
     if args.kernels_only:
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as fh:
             json.dump({"nvidia_smi": smi, "kind": kind, "kernels_only": True,
-                       "stencil_matvec": rec_k1, "sweep_variants": variants},
-                      fh, indent=1)
+                       "stencil_matvec": rec_k1, "sweep_variants": variants,
+                       "gj_inverse": k3_recs, "blocked_inverse": rec_inv,
+                       "bsr_matmat": k4_recs}, fh, indent=1)
         say("done", seconds=time.perf_counter() - t_start, kernels_only=True)
         return
 
@@ -730,6 +994,44 @@ def main():
     record["multisolve9"] = recs
     record["multisolve9_peak_bytes"] = peak
 
+    # the exact factorization
+    rep, counts, peak = counted_solve(EXACT)
+    check_solve("exact", EXACT, rep, counts, peak, max_iters=MAX_ITERS_EXACT)
+    paths["exact"] = counts
+    record["exact"] = rep.metrics()
+    record["exact_peak_bytes"] = peak
+
+    # then its residual on the card through the BSR product of the
+    # operator (K4, through the package's `bsr_matvec`), held against the
+    # stencil product (K1): a path of its own, counted on its own
+    def exact_residual():
+        prob = ht.assemble_problem(cfg_x, EXACT["problem"])
+        A, f = prob.A, prob.f_grid.reshape(-1)
+        u = torch.as_tensor(rep.u.reshape(-1), dtype=torch.complex64,
+                            device=dev)
+        return ht.bsr_matvec(stencil_to_bsr(A), u), \
+            k1.stencil_matvec_flat(A, u), f
+
+    (Au_bsr, Au_k1, f), counts, _ = counted(exact_residual)
+    err, rel = rel_err(Au_bsr, Au_k1)
+    card_residual = ((Au_bsr - f).norm() / f.norm()).item()
+    say("exact_residual", bsr_vs_stencil_max_abs_err=err,
+        bsr_vs_stencil_rel_err=rel, tol=K4_TOL,
+        true_residual_on_card=card_residual, launches=counts)
+    if (counts["bsr_matmat"], counts["stencil_matvec"],
+            counts["gj_inverse"], counts["sweep"]) != (1, 1, 0, 0):
+        fail(f"exact_residual: launches {counts}, want one BSR product "
+             "and one stencil product")
+    if not rel <= K4_TOL:
+        fail(f"exact: the BSR product disagrees with the stencil product: "
+             f"{rel:.3e} > {K4_TOL}")
+    if not card_residual < EXACT["rtol"]:
+        fail(f"exact: residual on the card {card_residual:.3e}")
+    paths["exact_residual"] = counts
+    record["exact_residual_on_card"] = card_residual
+    del Au_bsr, Au_k1, f
+    torch.cuda.empty_cache()
+
     # the kernel table: every kernel variant that a full-width path
     # launched (all with bf16 G and the corrected backward step), with the
     # launches counted during those paths
@@ -744,6 +1046,19 @@ def main():
         "launches_by_path": {p: c["stencil_matvec"]
                              for p, c in paths.items()},
         **{k: rec_k1[k] for k in keys}}]
+    for name, source, replaces, rec, shape in (
+            ("gj_inverse", "gj_inverse.cu", "gj_inverse.py:94", rec_k3,
+             {"batch": rec_k3["batch"], "k": rec_k3["k"]}),
+            ("bsr_matmat", "bsr_spmm.cu", "bsr_spmm.py:102", rec_k4,
+             {"nblocks": rec_k4["nblocks"],
+              "blocksize": rec_k4["blocksize"], "K": rec_k4["K"]})):
+        table.append({
+            "name": name, "route": "cuda",
+            "source": f"helmholtz_tpu_torch/csrc/{source}",
+            "replaces": f"helmholtz_tpu/ops/pallas/{replaces}",
+            "launches": sum(c[name] for c in paths.values()),
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
+            **{k: rec[k] for k in keys}, "timed_at": shape})
     launched = {(key, path): c for path, cs in paths.items()
                 for key, c in cs["sweep_variants"].items()}
     for tri, lerp in itertools.product((False, True), (False, True)):
@@ -782,8 +1097,11 @@ def main():
             ("solve9", ["sweep_fwd[bf16,tri]", "sweep_bwd[bf16,tri]"]),
             ("precision9", ["sweep_fwd[bf16,tri]", "sweep_bwd[bf16,tri]"]),
             ("multisolve9", ["sweep_fwd[bf16,lerp,tri,R4]",
-                             "sweep_bwd[bf16,lerp,tri,R4]"])):
-        for name in wanted:
+                             "sweep_bwd[bf16,lerp,tri,R4]"]),
+            ("exact", ["stencil_matvec"]),
+            ("exact_residual", ["stencil_matvec", "bsr_matmat"])):
+        for name in wanted + ([] if path == "exact_residual"
+                              else ["gj_inverse"]):
             if names.get(name, {}).get("launches_by_path", {}) \
                     .get(path, 0) < 1:
                 fail(f"{name} was not launched by the {path} path")
@@ -792,8 +1110,9 @@ def main():
     with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as fh:
         json.dump({"nvidia_smi": smi, "kind": kind, "seconds": seconds,
                    "stencil_matvec": rec_k1, "sweep_variants": variants,
-                   "kernels": table, "launches": paths, **record}, fh,
-                  indent=1)
+                   "gj_inverse": k3_recs, "blocked_inverse": rec_inv,
+                   "bsr_matmat": k4_recs, "kernels": table,
+                   "launches": paths, **record}, fh, indent=1)
     say("done", seconds=seconds)
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

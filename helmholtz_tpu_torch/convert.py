@@ -11,8 +11,9 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .core.sparse import Stencil5, Stencil9
+from .core.sparse import BSR, CSR, Stencil5, Stencil9, _index
 from .ops.kernels.sweep import g_ld
+from .precond.exact import ExactFactorization
 from .precond.sweeping import SweepingPreconditioner
 from .precond.sweeping9 import SweepingPreconditioner9
 
@@ -34,6 +35,32 @@ def stencil9_from_numpy(*fields, device="cuda") -> Stencil9:
     if len(fields) != 9:
         raise ValueError(f"a Stencil9 has nine fields, got {len(fields)}")
     return Stencil9(*(_complex_tensor(f, dev) for f in fields))
+
+
+def csr_from_numpy(data, indices, indptr, shape, *, device="cuda") -> CSR:
+    """A CSR matrix from its numpy arrays; indices are stored as int32."""
+    dev = resolve_device(device)
+    return CSR(_complex_tensor(data, dev), _index(indices, dev),
+               _index(indptr, dev), tuple(shape))
+
+
+def bsr_from_numpy(data, indices, indptr, shape, blocksize, *,
+                   device="cuda") -> BSR:
+    """A BSR matrix from its numpy arrays: blocks (nblocks, bm, bn) in CSR
+    order, block-column indices and indptr (stored as int32)."""
+    dev = resolve_device(device)
+    return BSR(_complex_tensor(data, dev), _index(indices, dev),
+               _index(indptr, dev), tuple(shape), tuple(blocksize))
+
+
+def exact_factorization_from_numpy(T, cs, cn, *,
+                                   device="cuda") -> ExactFactorization:
+    """An ExactFactorization from its complex numpy stack T (L, n, n) and
+    couplings cs, cn (L, n)."""
+    dev = resolve_device(device)
+    return ExactFactorization(T=_complex_tensor(T, dev),
+                              cs=_complex_tensor(cs, dev),
+                              cn=_complex_tensor(cn, dev))
 
 
 def g_planes_from_numpy(G, n: int, *, g_dtype=None, device="cuda"):

@@ -1,3 +1,3 @@
-from .sparse import Stencil5, Stencil9
+from .sparse import BSR, COO, CSR, Stencil5, Stencil9
 
-__all__ = ["Stencil5", "Stencil9"]
+__all__ = ["BSR", "COO", "CSR", "Stencil5", "Stencil9"]

@@ -3,11 +3,14 @@ solve, and `run_multisolve`, many sources and many frequencies against one
 operator each.
 
 Eager stages (assemble, factor, solve) on one device.  On the card every
-5-point operator product goes through the stencil kernel and every sweep,
-5-point or 9-point, through the sweep kernel (`ops.kernels`); on the CPU,
-which the caller must ask for, the same wrappers run their plain PyTorch
-versions.  The 9-point operator product (`stencil="9pt"`) is plain tensor
-code on either device, as the JAX package leaves it to its compiler.
+5-point operator product goes through the stencil kernel, every sweep,
+5-point or 9-point, through the sweep kernel, and every setup's inverses
+through the Gauss-Jordan kernel at the base of the blocked inverse
+(`ops.kernels`, `ops.dense`).  On the CPU, which the caller must ask for,
+the wrappers run their plain PyTorch versions and the inverses are
+`torch.linalg.inv`.  The 9-point operator product (`stencil="9pt"`) is
+plain tensor code on either device, as the JAX package leaves it to its
+compiler.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from .fd import problems as fd_problems
 from .fd import stencil as fd_stencil
 from .ops import spmv as plain_spmv
 from .ops.kernels.spmv_stencil import stencil_matvec_flat
+from .precond.exact import factor_exact
 from .precond.sweeping import (DEFAULT_SETUP_CHUNK,
                                preconditioner_from_samples,
                                setup_preconditioner)
@@ -370,6 +374,11 @@ def run_solver(n: int, b: int, wave_num: float, const: float,
     every clip(n//128, 1, 8)-th subgrid and interpolate; exact stride 1 on
     the CPU and always available via factor_stride=1.
 
+    `precond="exact"` factors the whole 5-point operator exactly
+    (`precond.exact`): GMRES then converges in one or two iterations, and
+    the setup is L layer inverses and an (L, n, n) stack, the validation
+    oracle rather than a production setting.
+
     `stencil="9pt"` solves the compact 9-point discretization
     (`fd.stencil.build_a_stencil9`, blend `stencil_gamma`) with its own
     moving-PML sweeping preconditioner (`precond.sweeping9`); it needs a
@@ -382,12 +391,11 @@ def run_solver(n: int, b: int, wave_num: float, const: float,
     dev = resolve_device(device)
     if stencil not in ("5pt", "9pt"):
         raise ValueError(f"unknown stencil {stencil!r}")
-    if precond in ("recompute", "exact"):
+    if precond == "recompute":
         raise NotImplementedError(
-            f"precond={precond!r} belongs to a later slice of the port "
-            "(queue 1 item " + ("15" if precond == "recompute" else "14")
-            + "), which is not ported yet")
-    if precond not in ("moving_pml", "none"):
+            "precond='recompute' belongs to a later slice of the port "
+            "(queue 1 item 15), which is not ported yet")
+    if precond not in ("moving_pml", "exact", "none"):
         raise ValueError(f"unknown precond {precond!r}")
     _set_full_float32()
     cdtype = complex_dtype or default_complex_dtype(dev)
@@ -403,6 +411,9 @@ def run_solver(n: int, b: int, wave_num: float, const: float,
         if bad:
             raise ValueError(f"stencil='9pt' does not support {bad} "
                              "(5-point-path features)")
+        if precond == "exact":
+            raise ValueError(f"stencil='9pt' supports precond='moving_pml' "
+                             f"or 'none', got {precond!r}")
         if precond == "moving_pml":
             _check_pml_width9(n, b)
         if factor_stride is None:
@@ -424,17 +435,24 @@ def run_solver(n: int, b: int, wave_num: float, const: float,
 
     _sync(dev)
     t0 = time.perf_counter()
-    A, hm, f_grid = _assemble_stage(
-        wave_num, const, alpha, n=n, b=b, problem=problem, fidelity=fidelity,
-        cdtype=cdtype, dedup_hm=dedup_hm, device=dev)
     use_precond = precond != "none"
     P = None
-    if use_precond:
+    if precond == "moving_pml":
+        A, hm, f_grid = _assemble_stage(
+            wave_num, const, alpha, n=n, b=b, problem=problem,
+            fidelity=fidelity, cdtype=cdtype, dedup_hm=dedup_hm, device=dev)
         P = _factor_stage(A, hm, b=b, hf_full_coupling=hf_full_coupling,
                           d2_replace=d2_replace, setup_chunk=setup_chunk,
                           g_dtype=g_dtype, factor_stride=factor_stride,
                           g_compress=g_compress, device=dev)
-    del hm
+        del hm
+    else:
+        A, _, f_grid = _assemble_a_stage(
+            wave_num, const, alpha, n=n, b=b, problem=problem,
+            fidelity=fidelity, cdtype=cdtype, device=dev)
+        f_grid = f_grid.to(cdtype)
+        if precond == "exact":
+            P = factor_exact(A)
     _sync(dev)
     t1 = time.perf_counter()
 

@@ -1,5 +1,8 @@
 from .dense import batched_inverse
-from .spmv import stencil9_matvec, stencil_matvec, stencil_matvec_flat
+from .spmv import (bsr_matmat, bsr_matvec, coo_matvec, csr_matmat,
+                   csr_matvec, stencil9_matvec, stencil_matvec,
+                   stencil_matvec_flat)
 
-__all__ = ["batched_inverse", "stencil9_matvec", "stencil_matvec",
+__all__ = ["batched_inverse", "bsr_matmat", "bsr_matvec", "coo_matvec",
+           "csr_matmat", "csr_matvec", "stencil9_matvec", "stencil_matvec",
            "stencil_matvec_flat"]

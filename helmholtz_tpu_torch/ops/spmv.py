@@ -1,16 +1,22 @@
-"""Stencil matrix-vector products in plain PyTorch.
+"""Sparse matrix-vector and matrix-matrix products.
 
 `stencil_matvec` is the plain version of the CUDA kernel in
 `ops.kernels.spmv_stencil`: the CPU tests run it, and the kernel is held
 against it on the card.  `stencil9_matvec`, the 9-point product, has no
 kernel on either side: the JAX package leaves it to its compiler, and here
 it is nine shifted multiply-adds on any device.
+
+The generic formats: `coo_matvec`, `csr_matvec` and `csr_matmat` are plain
+tensor code on any device (the JAX package has no kernel for them either);
+`bsr_matmat` and `bsr_matvec` run the BSR kernel (`ops.kernels.bsr_spmm`)
+on the card and its plain version on the CPU.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.sparse import Stencil5, Stencil9
+from ..core.sparse import BSR, COO, CSR, Stencil5, Stencil9
+from .kernels import bsr_spmm
 
 
 def stencil_matvec(A: Stencil5, u: torch.Tensor) -> torch.Tensor:
@@ -62,3 +68,36 @@ def stencil9_matvec_flat(A: Stencil9, x: torch.Tensor) -> torch.Tensor:
     L, n = A.grid_shape
     u = x.reshape(*x.shape[:-1], L, n)
     return stencil9_matvec(A, u).reshape(x.shape)
+
+
+def coo_matvec(A: COO, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x by scatter-add over the stored entries."""
+    contrib = A.data * x[A.col.long()]
+    out = torch.zeros(A.shape[0], dtype=contrib.dtype, device=x.device)
+    return out.index_add_(0, A.row.long(), contrib)
+
+
+def csr_matvec(A: CSR, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x by a segment sum over the rows."""
+    contrib = A.data * x[A.indices.long()]
+    out = torch.zeros(A.shape[0], dtype=contrib.dtype, device=x.device)
+    return out.index_add_(0, A.rows(), contrib)
+
+
+def csr_matmat(A: CSR, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for dense X of shape (ncols, k)."""
+    contrib = A.data[:, None] * X[A.indices.long()]
+    out = torch.zeros((A.shape[0], X.shape[1]), dtype=contrib.dtype,
+                      device=X.device)
+    return out.index_add_(0, A.rows(), contrib)
+
+
+def bsr_matmat(A: BSR, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for dense X of shape (ncols, k): the BSR kernel."""
+    return bsr_spmm.bsr_matmat(A, X.contiguous())
+
+
+def bsr_matvec(A: BSR, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x: the BSR kernel with one column."""
+    return bsr_spmm.bsr_matmat(A, x.reshape(-1, 1).contiguous()).reshape(
+        A.shape[0])

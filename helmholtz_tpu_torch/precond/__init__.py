@@ -1,8 +1,10 @@
+from .exact import ExactFactorization, factor_exact
 from .sweeping import (SweepingPreconditioner, apply_preconditioner,
                        setup_preconditioner)
 from .sweeping9 import (SweepingPreconditioner9, apply_preconditioner9,
                         setup_preconditioner9)
 
-__all__ = ["SweepingPreconditioner", "SweepingPreconditioner9",
-           "apply_preconditioner", "apply_preconditioner9",
-           "setup_preconditioner", "setup_preconditioner9"]
+__all__ = ["ExactFactorization", "SweepingPreconditioner",
+           "SweepingPreconditioner9", "apply_preconditioner",
+           "apply_preconditioner9", "factor_exact", "setup_preconditioner",
+           "setup_preconditioner9"]

@@ -43,19 +43,22 @@ from ..ops.kernels.sweep import g_ld, plain_sweep, sweep
 
 #: Complex-word budget for the batched-inverse setup workspace: at most
 #: `budget // n^2` subgrids go into one batched inverse (but at least 16).
-#: Measured on an H100 80GB (700 W) with scripts/measure_setup_chunk.py at
-#: n = 1023: one 1023^2 complex64 inverse costs 5.4 ms in batches of 4,
-#: 1.3 ms at 30, about 0.9 ms at 61 and 0.65-0.95 ms from 100 to 292, flat
-#: within the run-to-run spread; the workspace peaks at about 42 bytes per
-#: complex word of the batch.  1.6e8 words lets all 146 samples of the
-#: n = 1023, stride-7 setup through in ONE batch (6.1 GB of workspace), which
-#: gave the shortest init stage of the whole solve (1.4-1.6 s, against
-#: 1.6-1.8 s at chunk 128, 1.9 s at 61 and 2.4-2.7 s at 30), and still
-#: bounds the workspace near 6.7 GB for any larger grid.
-SETUP_WORKSPACE_WORDS = int(1.6e8)
+#: On the card the inverse is the blocked Gauss-Jordan (`ops.dense`), whose
+#: peak is the padded work matrix (n to 1024 at n = 1023), the panel row and
+#: column (rowk, colk: nb x 1024 each), the new panel column, the Schur
+#: matrix being inverted and the previous layer's inverse: about 3.8
+#: complex words per word of the batch, and measured at 30.6 bytes per
+#: complex word on an H100 80GB (700 W) by scripts/measure_setup_chunk.py at
+#: n = 1023 for every chunk from 4 to 300 (pivoted LU, which the budget was
+#: first sized for: 40.1).  A 1023^2 inverse costs 1.3 ms in batches of 4,
+#: 0.51-0.53 ms at 16-30 and 0.35-0.37 ms from 61 to 300 (LU: 6.0, 1.4-2.4
+#: and 0.70-1.01 ms).  2.1e8 words keeps the old bound of about 6.4 GB of
+#: workspace and lets all 146 samples of the n = 1023, stride-7 setup
+#: through in ONE batch.
+SETUP_WORKSPACE_WORDS = int(2.1e8)
 
 #: Default upper bound on the subgrids per batched inverse, above the clamp
-#: that the budget gives at n = 1023 (152).
+#: that the budget gives at n = 1023 (200).
 DEFAULT_SETUP_CHUNK = 256
 
 #: Real-word budget for the temporaries of one lerp-expansion chunk; a
@@ -159,7 +162,7 @@ def compress_tables(M: int, R: int):
 
 
 def _clamped_chunk(setup_chunk: int, n: int) -> int:
-    # a few (chunk, n, n) complex buffers live inside the batched inverse,
+    # about four (chunk, n, n) complex buffers live inside the inverse,
     # so the chunk scales down with the grid, but never below 16 matrices
     # per call (or 4 if the caller asks for less)
     return max(4, min(setup_chunk, max(16, SETUP_WORKSPACE_WORDS // (n * n))))

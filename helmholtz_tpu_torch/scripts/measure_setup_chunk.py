@@ -4,15 +4,20 @@
 
 For each chunk size the layer-Schur recursion (b batched inverses of
 chunk x n x n complex64 matrices) runs on that many moving-PML subgrids of
-the c1_f1 problem; the script prints seconds per subgrid and the peak device
-memory, one JSON line per chunk, after a line with the card's name and power
-limit.  With `--solve-chunks` it then times the whole init stage (assembly +
-factorization) of the full solve, `run_solver(n, b, n/8, 100, g_dtype="bf16")`,
-at each of those `setup_chunk` values, in the order given and back again.
+the c1_f1 problem, through each route of `ops.dense.batched_inverse` in
+turn: the blocked Gauss-Jordan inverse with its panel kernel (the setup's
+route on the card) and `torch.linalg.inv` (pivoted LU, `pivoted=True`).
+The script prints seconds per subgrid, ms per inverse and the peak device
+memory above what the inputs hold, one JSON line per chunk and route, after
+a line with the card's name and power limit.  With `--solve-chunks` it
+then times the whole init stage (assembly + factorization) of the full
+solve, `run_solver(n, b, n/8, 100, g_dtype="bf16")`, at each of those
+`setup_chunk` values, in the order given and back again.
 The value of `precond.sweeping.SETUP_WORKSPACE_WORDS` was chosen from this
 output.  Needs one CUDA device.
 """
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -22,7 +27,10 @@ import torch
 
 import helmholtz_tpu_torch as ht
 from helmholtz_tpu_torch.fd import stencil as fd_stencil
+from helmholtz_tpu_torch.ops import dense
 from helmholtz_tpu_torch.precond import sweeping
+
+ROUTES = {"gauss_jordan": False, "linalg_inv": True}   # name: pivoted
 
 
 def main():
@@ -30,7 +38,7 @@ def main():
     parser.add_argument("--n", type=int, default=1023)
     parser.add_argument("--b", type=int, default=12)
     parser.add_argument("--chunks", type=int, nargs="+",
-                        default=[4, 8, 16, 30, 61, 146])
+                        default=[4, 8, 16, 30, 61, 146, 300])
     parser.add_argument("--solve-chunks", type=int, nargs="*", default=[],
                         help="setup_chunk values for whole-solve init times")
     args = parser.parse_args()
@@ -52,24 +60,30 @@ def main():
         rows, n, b, cfg.const, cfg.eta, cfg.omega, cfg.h, prob.c_full,
         fidelity="corrected", complex_dtype=torch.complex64)
     with torch.no_grad():
-        sweeping._schur_corner_inverse(hm.map(lambda f: f[:2]))   # warm up
         for chunk in args.chunks:
             part = hm.map(lambda f: f[:chunk])
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            t0 = time.perf_counter()
-            T = sweeping._schur_corner_inverse(part)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated() - base
-            del T
-            print(json.dumps({
-                "chunk": chunk, "seconds": dt,
-                "seconds_per_subgrid": dt / chunk,
-                "ms_per_inverse": dt / (chunk * b) * 1e3,
-                "workspace_peak_bytes": peak,
-                "complex_words": chunk * n * n}), flush=True)
+            for route, pivoted in ROUTES.items():
+                sweeping.batched_inverse = functools.partial(
+                    dense.batched_inverse, pivoted=pivoted)
+                sweeping._schur_corner_inverse(part.map(lambda f: f[:2]))
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                T = sweeping._schur_corner_inverse(part)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() - base
+                del T
+                words = chunk * n * n
+                print(json.dumps({
+                    "chunk": chunk, "route": route, "seconds": dt,
+                    "seconds_per_subgrid": dt / chunk,
+                    "ms_per_inverse": dt / (chunk * b) * 1e3,
+                    "workspace_peak_bytes": peak, "complex_words": words,
+                    "bytes_per_word": peak / words}), flush=True)
+        sweeping.batched_inverse = dense.batched_inverse
     del hm, part, prob
     for chunk in args.solve_chunks + args.solve_chunks[::-1]:
         torch.cuda.empty_cache()

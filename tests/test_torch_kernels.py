@@ -21,7 +21,7 @@ from helmholtz_tpu_torch.ops.kernels import spmv_stencil as k1
 from helmholtz_tpu_torch.ops.kernels import sweep as k2
 from helmholtz_tpu_torch.precond import sweeping as tsweep
 
-from torch_parity import (both_problems, precond_to_torch,  # noqa: F401
+from torch_parity import (port_problems, precond_to_torch,  # noqa: F401
                           random_grid, single_thread, stencil_to_torch,
                           to_np)
 
@@ -33,15 +33,15 @@ N, B, WAVE, CONST = 17, 4, 1.0, 20.0
 def test_stencil_matvec_matches_pallas_interpret():
     """complex64, rtol 2e-5 of the largest entry: the tolerance the JAX
     package's own Pallas test uses (float32 sums in another order)."""
-    _, jprob, _, tprob, _ = both_problems(33, 6, 2.0, 20.0,
+    _, jprob, _, tprob, _ = port_problems(N, B, WAVE, CONST,
                                           cdtype="complex64")
-    u = random_grid(0, (33, 33), np.complex64)
+    u = random_grid(0, (N, N), np.complex64)
     ref = pallas_stencil_matvec(pairify(jprob.A), CArray.of(jnp.asarray(u)),
-                                block_layers=16, interpret=True).to_np()
+                                block_layers=8, interpret=True).to_np()
     got = to_np(k1.stencil_matvec(tprob.A, torch.from_numpy(u)))
     np.testing.assert_allclose(got, ref, rtol=2e-5,
                                atol=2e-5 * np.abs(ref).max())
-    # the same product through the JAX-assembled operator, converted
+    # the same product through the operator carried over from the JAX side
     got2 = to_np(k1.stencil_matvec(stencil_to_torch(jprob.A),
                                    torch.from_numpy(u)))
     np.testing.assert_allclose(got2, ref, rtol=2e-5,
@@ -49,8 +49,8 @@ def test_stencil_matvec_matches_pallas_interpret():
 
 
 def test_stencil_matvec_matches_jax_complex128():
-    _, jprob, _, tprob, _ = both_problems(33, 6, 2.0, 20.0)
-    u = random_grid(1, (33, 33))
+    _, jprob, _, tprob, _ = port_problems(N, B, WAVE, CONST)
+    u = random_grid(1, (N, N))
     ref = np.asarray(jspmv.stencil_matvec(jprob.A, jnp.asarray(u)))
     scale = np.abs(ref).max()
     got = to_np(tspmv.stencil_matvec(tprob.A, torch.from_numpy(u)))
@@ -62,7 +62,7 @@ def test_stencil_matvec_matches_jax_complex128():
     dense = tprob.A.todense() @ u.reshape(-1)
     np.testing.assert_allclose(flat, dense, rtol=1e-12, atol=1e-12 * scale)
     # batched right-hand sides ride the leading dimension
-    ub = random_grid(2, (3, 33, 33))
+    ub = random_grid(2, (3, N, N))
     refb = np.asarray(jspmv.stencil_matvec(jprob.A, jnp.asarray(ub)))
     gotb = to_np(tspmv.stencil_matvec(tprob.A, torch.from_numpy(ub)))
     np.testing.assert_allclose(gotb, refb, rtol=1e-13, atol=1e-13 * scale)
@@ -74,7 +74,7 @@ def test_stencil_matvec_matches_jax_complex128():
 def factored():
     """One JAX-factored problem (lane-padded G, the Pallas layout) and its
     conversion to the port's layout."""
-    _, jprob, jhm, _, _ = both_problems(N, B, WAVE, CONST)
+    _, jprob, jhm, _, _ = port_problems(N, B, WAVE, CONST)
     P_pad = jsweep.setup_preconditioner(jprob.A, jhm, B, pad_lanes=True)
     assert P_pad.G.re.shape == (N - B, 128, 128)
     return jprob, jhm, P_pad, precond_to_torch(P_pad, N)
@@ -118,7 +118,7 @@ def test_apply_grid_matches_jax_xla(d2_replace, g_dtype, shared):
     order of the float32 sums and, for bf16 G, the JAX side's split of its
     float32 carry into two bf16 parts: 1e-5 of the largest entry."""
     problem = "c2_f1" if shared else "c1_f1"
-    _, jprob, jhm, _, _ = both_problems(N, B, WAVE, CONST, problem,
+    _, jprob, jhm, _, _ = port_problems(N, B, WAVE, CONST, problem,
                                         cdtype="complex64")
     if shared:
         jhm = type(jhm)(*(getattr(jhm, f)[:1]
@@ -193,7 +193,7 @@ def test_wrappers_raise_on_what_is_not_ported(factored):
 def test_cuda_argument_checks_raise_on_wrong_dtype(factored):
     """The checks the wrappers make before a launch raise on a wrong type,
     shape or layout; nothing falls back to the plain version."""
-    _, _, _, tprob, _ = both_problems(N, B, WAVE, CONST)
+    _, _, _, tprob, _ = port_problems(N, B, WAVE, CONST)
     _, _, _, P_t = factored
     u128 = torch.from_numpy(random_grid(30, (N, N)))
     with pytest.raises(TypeError, match="complex64"):

@@ -26,7 +26,7 @@ from helmholtz_tpu_torch.ops.kernels import sweep as k2
 from helmholtz_tpu_torch.precond import sweeping as tsweep
 from helmholtz_tpu_torch.solve import batched as tbatched
 
-from torch_parity import (both_problems, precond_to_torch,  # noqa: F401
+from torch_parity import (port_problems, precond_to_torch,  # noqa: F401
                           random_grid, single_thread, stencil_to_torch,
                           to_np)
 
@@ -36,7 +36,7 @@ M_ROWS = N - B
 
 @pytest.fixture(scope="module")
 def problem():
-    return both_problems(N, B, WAVE, CONST)
+    return port_problems(N, B, WAVE, CONST)
 
 
 @pytest.fixture(scope="module")
@@ -387,7 +387,7 @@ def test_solve_multi_problem_equals_single_solves(problem, factored):
     """A batch of independent systems (two frequencies' operators and
     factor stacks) gives each its own single solve."""
     _, _, _, tprob, _ = problem
-    _, _, _, tprob2, thm2 = both_problems(N, B, 2.5, CONST)
+    _, _, _, tprob2, thm2 = port_problems(N, B, 2.5, CONST)
     P1 = factored[1][1]
     P2 = tsweep.setup_preconditioner(tprob2.A, thm2, B, device="cpu")
     Bm = torch.stack([tprob.f_vec, tprob2.f_vec])

@@ -17,7 +17,7 @@ from helmholtz_tpu_torch.ops.kernels import sweep as k2
 from helmholtz_tpu_torch.precond import sweeping as tsweep
 from helmholtz_tpu_torch.precond import sweeping9 as tsweep9
 
-from torch_parity import (both_problems9, precond9_to_torch,  # noqa: F401
+from torch_parity import (port_problems9, precond9_to_torch,  # noqa: F401
                           random_grid, single_thread, to_np)
 
 N, B, WAVE, CONST, STRIDE = 24, 4, 2.0, 30.0, 4
@@ -26,7 +26,7 @@ M = N - B
 
 @pytest.fixture(scope="module")
 def sides():
-    return both_problems9(N, B, WAVE, CONST)
+    return port_problems9(N, B, WAVE, CONST)
 
 
 @pytest.fixture(scope="module")

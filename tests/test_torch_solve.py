@@ -18,7 +18,7 @@ from helmholtz_tpu_torch import driver as tdriver
 from helmholtz_tpu_torch.ops.kernels.sweep import g_ld
 from helmholtz_tpu_torch.precond import sweeping as tsweep
 
-from torch_parity import (both_problems, precond_to_torch,  # noqa: F401
+from torch_parity import (port_problems, precond_to_torch,  # noqa: F401
                           random_grid, single_thread, stencil_to_torch,
                           to_np)
 
@@ -28,7 +28,7 @@ N, B, WAVE, CONST = 31, 6, 2.0, 20.0
 
 @pytest.fixture(scope="module")
 def problem():
-    return both_problems(N, B, WAVE, CONST)
+    return port_problems(N, B, WAVE, CONST)
 
 
 def _planes(P_t):
@@ -76,7 +76,7 @@ def test_setup_chunking_and_storage_type(problem):
                                atol=1e-12 * np.abs(_planes(one)).max())
     assert tsweep._clamped_chunk(128, 1023) == 128
     assert tsweep._clamped_chunk(tsweep.DEFAULT_SETUP_CHUNK, 1023) == \
-        tsweep.SETUP_WORKSPACE_WORDS // 1023 ** 2 == 152
+        tsweep.SETUP_WORKSPACE_WORDS // 1023 ** 2 == 200
     assert tsweep._clamped_chunk(128, 4095) == 16
     assert tsweep._clamped_chunk(2, 31) == 4
     low = tsweep.setup_preconditioner(tprob.A, thm, B, factor_stride=3,
@@ -274,10 +274,12 @@ def test_run_solver_options():
     assert packed.iterations == expanded.iterations
     for kw, name in ((dict(method="bicgstab"), "solver-extras"),
                      (dict(method="bicgstab", stencil="9pt"), "item 13"),
-                     (dict(precond="recompute"), "item 15"),
-                     (dict(precond="exact"), "item 14")):
+                     (dict(precond="recompute"), "item 15")):
         with pytest.raises(NotImplementedError, match=name):
             tdriver.run_solver(15, 4, 1.0, 20.0, device="cpu", **kw)
+    exact = tdriver.run_solver(15, 4, 1.0, 20.0, precond="exact",
+                               device="cpu")
+    assert exact.converged and exact.iterations <= 2
     with pytest.raises(ValueError, match="precision"):
         tdriver.run_solver(15, 4, 1.0, 20.0, device="cpu", precision="f64")
     assert tdriver.auto_factor_stride(1023, "c1_f1", "cuda") == 7

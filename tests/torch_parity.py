@@ -4,9 +4,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import helmholtz_tpu as hj
 import helmholtz_tpu_torch as ht
+from helmholtz_tpu.core import sparse as jsparse
+from helmholtz_tpu.fd import assembly as jassembly
 from helmholtz_tpu.fd import stencil as jstencil
 from helmholtz_tpu_torch import convert
 from helmholtz_tpu_torch.fd import stencil as tstencil
@@ -17,13 +20,14 @@ FIELDS9 = FIELDS + ("csw", "cse", "cnw", "cne")
 
 @pytest.fixture(scope="module", autouse=True)
 def single_thread():
-    """The grids here are tiny; one thread keeps the port's side from
-    competing with parallel test workers for cores.  A test module takes
-    this fixture by importing it, and the old setting comes back when the
-    module is done."""
+    """The grids here are tiny; one thread for torch and for numpy's and
+    scipy's BLAS keeps the parity tests from competing with parallel test
+    workers for cores.  A test module takes this fixture by importing it,
+    and the old settings come back when the module is done."""
     before = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(before)
 
 
@@ -67,6 +71,37 @@ def both_problems(n, b, wave_num, const, problem="c1_f1",
                                      tcfg.h, tprob.c_full, fidelity=fidelity,
                                      complex_dtype=tcd)
     return tcfg, jprob, jhm, tprob, thm
+
+
+def to_jax(x):
+    """A JAX array (or Stencil) holding a copy of a port tensor (or
+    Stencil)."""
+    if isinstance(x, (ht.Stencil5, ht.Stencil9)):
+        cls = jsparse.Stencil5 if isinstance(x, ht.Stencil5) \
+            else jsparse.Stencil9
+        return cls(*(jnp.asarray(to_np(f)) for f in x.fields()))
+    return jnp.asarray(to_np(x))
+
+
+def port_problems(n, b, wave_num, const, problem="c1_f1",
+                  fidelity="corrected", cdtype="complex128"):
+    """`both_problems` for the parity tests of what comes after assembly:
+    the JAX side holds the port's own operator, forcing and subgrid family,
+    so no JAX assembly is compiled.  The assembly itself is held against
+    the JAX package by `test_torch_assembly.py` (to 1e-12)."""
+    tcd = {"complex128": torch.complex128,
+           "complex64": torch.complex64}[cdtype]
+    tcfg = ht.HelmholtzConfig(n=n, b=b, wave_num=wave_num, const=const,
+                              fidelity=fidelity)
+    tprob = ht.assemble_problem(tcfg, problem, complex_dtype=tcd,
+                                device="cpu")
+    thm = tstencil.build_hm_stencils(n, b, const, tcfg.eta, tcfg.omega,
+                                     tcfg.h, tprob.c_full, fidelity=fidelity,
+                                     complex_dtype=tcd)
+    jprob = jassembly.Problem(A=to_jax(tprob.A),
+                              c_full=to_jax(tprob.c_full),
+                              f_grid=to_jax(tprob.f_grid))
+    return tcfg, jprob, to_jax(thm), tprob, thm
 
 
 def stencil_to_torch(j_stencil):
@@ -118,6 +153,24 @@ def both_problems9(n, b, wave_num, const, problem="c1_f1",
             *args, **kw, rows=None if rows is None else as_rows(rows))
         sides.append((A9, hm9, prob.c_full, prob.f_grid))
     return tcfg, sides[0], sides[1]
+
+
+def port_problems9(n, b, wave_num, const, problem="c1_f1",
+                   fidelity="corrected", gamma=2.0 / 3.0):
+    """`both_problems9` for the parity tests of what comes after assembly:
+    both sides hold the port's 9-point operator, family, velocity and
+    forcing (the 9-point assembly is held against the JAX package by
+    `test_torch_assembly9.py`), so no JAX assembly is compiled."""
+    tcfg = ht.HelmholtzConfig(n=n, b=b, wave_num=wave_num, const=const,
+                              fidelity=fidelity)
+    tprob = ht.assemble_problem(tcfg, problem, complex_dtype=torch.complex128,
+                                device="cpu")
+    args = (n, b, const, tcfg.eta, tcfg.omega, tcfg.h, tprob.c_full)
+    kw = dict(gamma=gamma, fidelity=fidelity, complex_dtype=torch.complex128)
+    side = (tstencil.build_a_stencil9(*args, **kw),
+            tstencil.build_hm_stencils9(*args, **kw), tprob.c_full,
+            tprob.f_grid)
+    return tcfg, tuple(to_jax(x) for x in side), side
 
 
 def stencil9_to_torch(j_stencil):
