@@ -35,21 +35,24 @@ and the exact path:
                 block-sparse product (BSR) of the operator, `bsr_matvec`,
                 and held against the stencil product;
 
-and checks by launch counts, set to zero before each path and read after it,
-that each path went through its kernel variants.  Every factoring path runs
-its batched inverses through the blocked Gauss-Jordan inverse and its panel
-kernel.  Any failed phase ends the script with a non-zero exit code; it
-needs a CUDA device and exits with code 1 without one.
+After `solve` it profiles one apply of the main path's preconditioner
+with torch.profiler (`apply_profile`: K2's share of the device time, the
+device's idle share).  It checks by launch counts, set to zero before each
+path and read after it, that each path went through its kernel variants.
+Every factoring path runs its batched inverses through the blocked
+Gauss-Jordan inverse and its panel kernel.  Any failed phase ends the
+script with a non-zero exit code; it needs a CUDA device and exits with
+code 1 without one.
 
 Every phase prints one JSON line.  The last three lines are the kernel
 table, the card's name and power limit, and the verdict.
 """
 import argparse
+import dataclasses
 import itertools
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 import warnings
@@ -68,6 +71,9 @@ from helmholtz_tpu_torch.ops.kernels import spmv_stencil as k1
 from helmholtz_tpu_torch.ops.kernels import sweep as k2
 from helmholtz_tpu_torch.ops.sparse_algebra import stencil_to_bsr
 from helmholtz_tpu_torch.precond import sweeping, sweeping9
+from helmholtz_tpu_torch.scripts.common import (
+    card, gj_matrices, lerp_tables, randc, random_g, rel_err, schur_blocks,
+    sweep_inputs, time_ms)
 
 # Published peaks of one H100 SXM at its full power limit: device memory
 # rate and the float32 rate outside the tensor cores (every kernel does
@@ -157,42 +163,11 @@ def fail(msg):
     sys.exit(1)
 
 
-def time_ms(fn, reps, flush=None):
-    """Mean device time of fn() in ms by CUDA events; `flush` (a large
-    buffer) is rewritten before each run so the L2 cache starts cold."""
-    fn()
-    torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(reps):
-        if flush is not None:
-            flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
-
-
 def bound(bytes_moved, flops):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
-
-
-def rel_err(got, ref):
-    scale = ref.abs().max().item()
-    err = (got - ref).abs().max().item()
-    return err, err / scale
-
-
-def randc(shape, gen, dev):
-    re = torch.randn(shape, generator=gen, device=dev)
-    im = torch.randn(shape, generator=gen, device=dev)
-    return torch.complex(re, im) / math.sqrt(2.0)
 
 
 # -- K1 -----------------------------------------------------------------------
@@ -243,38 +218,6 @@ def check_k1(A, gen, flush, timed):
 
 # -- K2 -----------------------------------------------------------------------
 
-def sweep_inputs(n, S, R, gen, dev, tri=False):
-    """u (S, n) or (S, R, n), c with its top row zero, carry0.  c is (S, n),
-    or with `tri` the (S, 3, n) rows [sub, diag, sup] of a tridiagonal
-    coupling of about the same norm, with random NON-ZERO values left in
-    sub[:, 0] and sup[:, n-1]: the slots that assembly zeroes and that
-    neither the kernel nor the plain version may read."""
-    shape = (S, n) if R is None else (S, R, n)
-    u = randc(shape, gen, dev)
-    c = (randc((S, 3, n), gen, dev) / math.sqrt(3.0) if tri
-         else randc((S, n), gen, dev))
-    c[-1] = 0
-    return u, c, randc(shape[1:], gen, dev)
-
-
-def random_g(Mg, n, gen, dev):
-    """Random float32 planes at the kernel's pitch, scaled so that a panel's
-    spectral norm is about 0.5 (the recursion neither dies nor blows up)."""
-    ld = k2.g_ld(n)
-    sigma = 0.25 / math.sqrt(n) / math.sqrt(2.0)
-    planes = []
-    for _ in range(2):
-        g = torch.zeros((Mg, n, ld), device=dev)
-        g[:, :, :n] = torch.randn((Mg, n, n), generator=gen,
-                                  device=dev) * sigma
-        planes.append(g)
-    return planes
-
-
-def lerp_tables(M, stride, dev):
-    g_w, g_lo = sweeping.compress_tables(M, stride)
-    return torch.from_numpy(g_lo).to(dev), torch.from_numpy(g_w).to(dev)
-
 
 def variant_name(mode, bf16, shared=False, lerp=False, R=None, tri=False):
     return (f"sweep_{mode}[{'bf16' if bf16 else 'f32'}"
@@ -298,6 +241,7 @@ def check_k2(G_re, G_im, mode, gen, timed, rows=None, library_step=False,
     if lerp:
         kw.update(g_lo=tables[0], g_w=tables[1])
     u, c, carry0 = sweep_inputs(n, S, R, gen, dev, tri)
+    k2.reset_counts()
     got = k2.sweep(G_re, G_im, u, c, carry0, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -334,11 +278,16 @@ def check_k2(G_re, G_im, mode, gen, timed, rows=None, library_step=False,
             # between steps: two panels a step
             rec["bound_no_reuse_ms"], _ = bound(
                 2 * S * panel_bytes + vec_bytes + table_bytes, flops)
+        k2.reset_counts()
         rec["ms"] = time_ms(
             lambda: k2.sweep(G_re, G_im, u, c, carry0, **kw), 3)
         rec["plain_ms"] = plain_ms
         rec["library_ms"] = None
         rec["step_ms"] = rec["ms"] / S
+    # the plan of each launch that the wrapper made in the (timed) call,
+    # one a chunk of at most MAX_WIDTH right-hand sides, as it recorded it
+    rec["plans"] = [{"width": key[1], **dataclasses.asdict(plan)}
+                    for key, plan in k2.plans_by_variant.items()]
     if library_step:
         # one step's product as one library call: torch.mv of a complex64
         # panel (torch.mm with an (n, R) block for R right-hand sides), over
@@ -363,12 +312,6 @@ def check_k2(G_re, G_im, mode, gen, timed, rows=None, library_step=False,
 
 
 # -- K3 -----------------------------------------------------------------------
-
-def gj_matrices(B, k, gen, dev):
-    """Random complex64 (B, k, k) matrices that need no pivoting: the
-    identity plus a random part of spectral norm about 0.5."""
-    eye = torch.eye(k, dtype=torch.complex64, device=dev)
-    return eye + randc((B, k, k), gen, dev) * (0.25 / math.sqrt(k))
 
 
 def check_k3(B, k, gen, flush, timed):
@@ -395,29 +338,6 @@ def check_k3(B, k, gen, flush, timed):
     return rec
 
 
-def schur_blocks(n, b, stride, count):
-    """The matrices that the n-point setup inverts at its last layer, S_{b-1}
-    = H_{b-1,b-1} - C T_{b-2} C', for the first `count` subgrid samples of a
-    stride-`stride` setup of the c1_f1 problem (FULL's operator)."""
-    cfg = ht.HelmholtzConfig(n=n, b=b, wave_num=FULL["wave_num"],
-                             const=FULL["const"])
-    prob = ht.assemble_problem(cfg, FULL["problem"])
-    rows = b + torch.as_tensor(sweeping.sample_positions(n - b, stride)[
-        :count], device=prob.c_full.device)
-    hm = fd_stencil.build_hm_stencils_rows(
-        rows, n, b, cfg.const, cfg.eta, cfg.omega, cfg.h, prob.c_full,
-        fidelity="corrected", complex_dtype=torch.complex64)
-    T = dense.batched_inverse(sweeping._dense_tridiag(
-        hm.cw[:, 0], hm.cc[:, 0], hm.ce[:, 0]))
-    for l in range(1, b):
-        S = T * (-hm.cs[:, l, :, None])
-        S.mul_(hm.cn[:, l - 1, None, :])
-        sweeping._add_tridiag_(S, hm.cw[:, l], hm.cc[:, l], hm.ce[:, l])
-        if l == b - 1:
-            return S
-        T = dense.batched_inverse(S)
-
-
 def inverse_residual(X, A):
     """||X A - I||_F / ||I||_F over a batch, one matrix at a time."""
     n = A.shape[-1]
@@ -428,11 +348,13 @@ def inverse_residual(X, A):
 
 
 def check_blocked_inverse(flush):
-    """The setup's batched inverse at its main shape, both routes."""
+    """The setup's batched inverse at its main shape, both routes, and at a
+    batch of one (one Schur block: what the lerped setups' H_F and the
+    exact path's layer inverses pay)."""
     n = FULL["n"]
     Mg = n - FULL["b"]
     B = len(sweeping.sample_positions(Mg, LERP_STRIDE))
-    S = schur_blocks(n, FULL["b"], LERP_STRIDE, B)
+    S = schur_blocks(FULL, LERP_STRIDE, B)
     rec = {"batch": B, "n": n, "tol": INV_TOL}
     for route, pivoted in (("gauss_jordan", False), ("linalg_inv", True)):
         X = dense.batched_inverse(S, pivoted=pivoted)
@@ -449,11 +371,63 @@ def check_blocked_inverse(flush):
         # the operations of one inverse, 8 n^3, at the achieved rate
         rec[f"{route}_tflops"] = 8 * n ** 3 / (
             rec[f"{route}_ms_per_inverse"] * 1e-3) / 1e12
-    for route in ("gauss_jordan", "linalg_inv"):
-        if not rec[f"{route}_residual"] < INV_TOL:
-            fail(f"blocked_inverse: {route} residual "
-                 f"{rec[f'{route}_residual']:.3e} >= {INV_TOL}")
+        one = S[:1].contiguous()
+        rec[f"{route}_batch1_residual"] = inverse_residual(
+            dense.batched_inverse(one, pivoted=pivoted), one)
+        rec[f"{route}_batch1_ms"] = time_ms(
+            lambda: dense.batched_inverse(one, pivoted=pivoted), 5, flush)
+    for route, key in itertools.product(("gauss_jordan", "linalg_inv"),
+                                        ("residual", "batch1_residual")):
+        if not rec[f"{route}_{key}"] < INV_TOL:
+            fail(f"blocked_inverse: {route} {key} "
+                 f"{rec[f'{route}_{key}']:.3e} >= {INV_TOL}")
     return rec
+
+
+def profile_apply():
+    """One apply of the main path's preconditioner (FULL: n = 1023, bf16 G,
+    stride 7) under torch.profiler after a warm-up apply: device time by
+    kernel, K2's share of it, and the device's idle share of the window
+    timed by CUDA events around the apply.  One stream, so the busy time is
+    the sum of the kernels' times."""
+    cfg = ht.HelmholtzConfig(n=FULL["n"], b=FULL["b"],
+                             wave_num=FULL["wave_num"], const=FULL["const"])
+    prob = ht.assemble_problem(cfg, FULL["problem"])
+    hm = fd_stencil.build_hm_stencils(cfg.n, cfg.b, cfg.const, cfg.eta,
+                                      cfg.omega, cfg.h, prob.c_full,
+                                      fidelity="corrected",
+                                      complex_dtype=torch.complex64)
+    P = sweeping.setup_preconditioner(prob.A, hm, cfg.b,
+                                      g_dtype=torch.bfloat16,
+                                      factor_stride=LERP_STRIDE)
+    del hm
+    f = prob.f_grid
+    sweeping.apply_preconditioner(P, f)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        start.record()
+        sweeping.apply_preconditioner(P, f)
+        end.record()
+        torch.cuda.synchronize()
+    window_ms = start.elapsed_time(end)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    busy_ms = sum(by_name.values())
+    sweep_ms = sum(t for name, t in by_name.items() if "sweep_kernel" in name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"window_ms": window_ms, "device_kernels": len(by_name),
+            "device_busy_ms": busy_ms,
+            "sweep_ms": sweep_ms,
+            "sweep_share_of_device": sweep_ms / busy_ms if busy_ms else None,
+            "idle_share": 1.0 - busy_ms / window_ms if busy_ms else None,
+            "top_kernels_ms": [[name[:120], t] for name, t in top]}
 
 
 # -- K4 -----------------------------------------------------------------------
@@ -727,10 +701,7 @@ def main():
         sys.exit(1)
     t_start = time.perf_counter()
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = card()
     kind = torch.cuda.get_device_name(0)
     say("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda)
@@ -779,15 +750,18 @@ def main():
         for mode in k2.MODES:
             keep(check_k2(*planes, mode, gen, timed=True,
                           library_step=(mode == "bwd")))
-    keep(check_k2(*shared, "bwd", gen, timed=True, rows=Mg))
+    keep(check_k2(*shared, "bwd", gen, timed=True, rows=Mg,
+                  library_step=True))
     for planes in (G32, G16):
         for mode in k2.MODES:
             keep(check_k2(*planes, mode, gen, timed=True, R=4,
                           library_step=(mode == "bwd")))
-    keep(check_k2(*shared, "bwd", gen, timed=True, rows=Mg, R=4))
+    keep(check_k2(*shared, "bwd", gen, timed=True, rows=Mg, R=4,
+                  library_step=True))
     for R in (2, 3):
         for mode in ("fwd", "bwd"):
-            keep(check_k2(*G16, mode, gen, timed=True, R=R))
+            keep(check_k2(*G16, mode, gen, timed=True, R=R,
+                          library_step=(mode == "bwd")))
     # K2 with tridiagonal coupling at the 9-point path's depth (b = 74: 949
     # sweep rows): every mode x type at R = 1 and R = 4
     Mg9 = n - NINE["b"]
@@ -948,6 +922,12 @@ def main():
                 max_iters=ORACLE_ITERS_FULL + 1)
     paths["solve"] = counts
     record = {"solve": rep.metrics(), "solve_peak_bytes": peak}
+    record["apply_profile"] = profile_apply()
+    say("apply_profile", **record["apply_profile"])
+    if not record["apply_profile"]["device_kernels"]:
+        say("apply_profile", note="torch.profiler recorded no device time; "
+            "the window's CUDA-event time stands alone")
+    torch.cuda.empty_cache()
 
     # many sources and frequencies: dense G, then compressed G with the
     # setup amortized over the frequencies
@@ -1071,6 +1051,7 @@ def main():
                 R = None if width == 1 else width   # width 1: unbatched
                 v = by_name[variant_name(mode, True, lerp=lerp, R=R,
                                          tri=tri)]
+                plan = next(p for p in v["plans"] if p["width"] == width)
                 table.append({
                     "name": v["name"], "route": "cuda",
                     "source": "helmholtz_tpu_torch/csrc/sweep.cu",
@@ -1080,6 +1061,8 @@ def main():
                     "launches_by_path": by_path,
                     **{k: v[k] for k in keys},
                     "steps_per_launch": v["steps"], "step_ms": v["step_ms"],
+                    "blocks": plan["blocks"], "stages": plan["stages"],
+                    "shared_bytes": plan["shared_bytes"],
                     "step_library_ms": v.get("step_library_ms"),
                     **({"bound_no_reuse_ms": v["bound_no_reuse_ms"]}
                        if lerp else {})})

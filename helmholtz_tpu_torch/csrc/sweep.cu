@@ -17,25 +17,54 @@
 //   lerp   : sample panels, step k applies
 //            G_k = w[k][0] * G[lo[k]] + w[k][1] * G[lo[k] + 1].
 // The TPU kernel is a sequential grid that keeps its carry in persistent
-// scratch and reads G in 128-lane padded tiles; here blocks run in parallel
-// and nothing persists between them, so the recursion is ordered
-// differently.
+// scratch; here the S steps of a sweep run inside ONE persistent launch.
 //
 // Bound: bytes.  Every step is a dense complex product of one n x n panel
 // (8 flops per right-hand side per 4 B of bf16 G, or per 8 B of f32 G)
 // against R vectors that depend on the step before, so the panel stream
 // from device memory is the limit up to about R = 10 (bf16) or 20 (f32) at
-// 67 TFLOP/s of float32 FMA.  One block cannot pull a panel at
-// device-memory rate, hence:
-//   * the rows of a panel are split over many blocks, one warp per row, so
-//     the row sum needs no reduction across blocks;
-//   * steps are ordered by launching ONE KERNEL PER STEP on the caller's
-//     stream; the entry point below loops over the steps itself, so the
-//     host makes one call per sweep.
-// At n = 1023 a step moves 4.2 MB (bf16), about 1.3 us at 3.35 TB/s, which
-// is less than a kernel launch: this design is launch-bound, far from the
-// byte bound.  The follow-up is a persistent cooperative kernel with a grid
-// barrier per step, or a CUDA graph of the step launches.
+// the H100's published 67 TFLOP/s of float32 FMA: 4.2 MB a step at
+// n = 1023 in bf16, 1.27 ms a sweep of 1010 steps at its published
+// 3.35 TB/s.  One block cannot pull a panel at that
+// rate, and a step lasts about as long as a kernel launch, so the design
+// has to split every panel over the whole card AND keep launches and idle
+// gaps out of the chain of steps:
+//   * ONE cooperative launch a sweep (cudaLaunchCooperativeKernel).  The
+//     grid is at most one block per SM (every block must be resident: the
+//     launch is refused otherwise, and the entry point returns the error).
+//     The step loop runs inside the kernel, with one grid-wide barrier a
+//     step, cooperative_groups' grid.sync(), which needs no -rdc build.
+//   * Each block owns a fixed contiguous range of rows for the whole sweep
+//     (rows_per_block = ceil(n / SMs), 8 at n = 1023 on 132 SMs); its warps
+//     take rows, its lanes 16-byte column chunks.  A row's sum is taken in
+//     one order, whatever R or the grid: per lane in column order, then a
+//     butterfly of warp shuffles, so a right-hand side's sums do not
+//     depend on R.
+//   * G does not depend on the carry.  A block's rows of the next step's
+//     panel (or sample pair) are copied with cp.async into a ring of
+//     shared-memory stages BEFORE the block waits at the current step's
+//     barrier; each lane copies exactly the chunks it later reads, so its
+//     own cp.async.wait_group makes them visible and no block-wide wait is
+//     needed for G.  The critical path of a step is then the barrier, the
+//     carry (8 R KB) from L2 into shared memory, and a dot against data
+//     already on chip.  Two stages where they fit in 227 KB (every bf16
+//     variant at n = 1023), else one; with shared G the one panel is
+//     loaded once for the sweep; rows too long for any stage (on 132 SMs:
+//     bf16 lerp and f32 dense from n = 1849, f32 lerp from n = 1321) are
+//     read from device memory directly.
+//   * Nothing the epilogue needs waits after the dot: u and c of a warp's
+//     row, and the lerp weights, are loaded before the prologue.  With
+//     diagonal coupling in bwd / bwd_sub, the owner of out[k][i] also
+//     forms the next step's operand element u[k-1][i] -+ c[k-1][i]
+//     out[k][i] into one of two scratch rows, so the next prologue reads
+//     one vector of 8 R KB where every block would read three.
+//   * Coherence: the carry (`out`, the two scratch rows) is written by
+//     other blocks of the same launch, so it is read with __ldcg (L2),
+//     never through the non-coherent read-only path; G, u and c are inputs
+//     and may take it.
+// Not chosen: a CUDA graph of per-step launches.  It removes the host's
+// launch cost but keeps S launch gaps on the device, and step k + 1's G
+// stream cannot start before step k's kernel has ended.
 //
 // R > 1: a lane loads its 16 bytes of the G row ONCE and multiplies them
 // into R pairs of accumulators, so R solves ride one stream of G.  The
@@ -43,47 +72,34 @@
 // ld = 1024).  The coupling prologue and the epilogue run per right-hand
 // side with the shared c.
 //
-// A step is latency-bound, so both phases of the kernel start their global
-// loads in batches before they use any of them.
-//
 // lerp: a warp takes its row's dot product against panel lo[k] and against
 // panel lo[k] + 1 and combines the two sums as w0 * acc0 + w1 * acc1 in
-// float32, on the outputs, as the TPU kernel does.  Every block reads its
-// own lo[k] and weights from device memory; nothing goes through the host.
-// The least traffic is each sample panel once a sweep; with no reuse it is
-// two panels a step.  Consecutive steps share their pair of panels
-// (stride - 1 times out of stride), and two bf16 panels at n = 1023 are
-// 8.4 MB against 50 MB of L2, so the second figure is not a lower bound on
-// this card; which one this kernel lands near is a measurement.  The
-// function itself, (w0 G[lo] + w1 G[lo+1]) @ V, needs one combine of the two
-// panels and ONE product, (8 R + 6) n^2 operations a step, and its bound
-// counts that; this kernel spends two products a step (16 R n^2) to keep
-// the weights on the outputs.  At n = 1023 with bf16 samples the operations
-// (0.22 ms a sweep at R = 1, 0.60 ms at R = 4) pass the least traffic
-// (0.19 ms), so operations bind the function.
+// float32, on the outputs, as the TPU kernel does.  Every block reads lo[k]
+// and the weights from device memory; nothing goes through the host.  The
+// function itself, (w0 G[lo] + w1 G[lo+1]) @ V, needs one combine of the
+// two panels and ONE product, (8 R + 6) n^2 operations a step, and its
+// bound counts that; this kernel spends two products a step (16 R n^2) to
+// keep the weights on the outputs.  Consecutive steps share their pair of
+// sample panels, which L2 (50 MB) holds.
 //
 // Tridiagonal coupling.  In bwd / bwd_sub the coupling acts on `other`,
 // which every block reads whole in its prologue anyway: element i takes
 // other[i-1], other[i], other[i+1] and three coefficient rows.  In fwd it
 // acts on the PRODUCT w = G[k] @ prev, whose neighbouring rows belong to
-// other warps and, at a block's edge, to other blocks (the TPU kernel holds
-// all of w in scratch and rolls lanes; nothing carries across blocks here).
-// Chosen: the fwd step stores the RAW product w_k into one of two small
-// scratch rows (ping-pong: a step's blocks read w_{k-1} while others write
-// w_k), and the NEXT step's prologue, which reads the whole vector anyway,
-// forms prev = out[k] = u[k] - c[k] w_k; the block that owns rows
-// 4 b .. 4 b + 3 also stores those elements of out[k].  One small tail
-// kernel forms the last row.  So G is still read once a step, a sweep is
-// S + 1 launches instead of S, and every sum has a fixed order.  Not
-// chosen: a coupling kernel after every step (2 S launches of a
-// launch-bound sweep), float atomics (order changes run to run), or
-// recomputing the neighbour rows (three times the stream of G).
+// other warps and, at a block's edge, to other blocks.  Each fwd step
+// stores its RAW product w_k into one of two scratch rows (ping-pong: a
+// step's blocks read w_{k-1} while others write w_k), and the NEXT step's
+// prologue, which reads the whole vector anyway, forms prev = out[k] =
+// u[k] - c[k] w_k; the block that owns rows of out[k] also stores them.
+// After the last step one more barrier, and every block finishes its own
+// rows of the last out.  So G is still read once a step, a sweep is still
+// one launch, and every sum has a fixed order (no float atomics).
 // Assembly zeroes sub[0] and sup[n-1], but the kernel does not lean on it:
 // it never reads index -1 or n (with R > 1 those are the neighbouring
 // right-hand side's memory), so those two slots are ignored whatever they
 // hold, as the plain version's shifted slices ignore them.
 //
-// Each lane loads 16 bytes of a row at a time (8 bf16 or 4 f32 values), so
+// Each lane moves 16 bytes of a row at a time (8 bf16 or 4 f32 values), so
 // a row must start 16-byte aligned: the planes are (Mg, n, ld) with row
 // pitch ld = ceil(n / 8) * 8 elements (1024 at n = 1023) and zero pad
 // columns.  The vector operands live in shared memory as float32, zero
@@ -94,20 +110,28 @@
 // the product.  The hi+lo bf16 split of the carry that the TPU kernel
 // needs for its bf16 matrix unit is therefore not needed here; it would
 // return only if the product moved to the tensor cores.  float32 G uses
-// plain float32 FMA (no TF32 anywhere).  A right-hand side's sums are taken
-// in the same order whatever R it is launched with.
+// plain float32 FMA (no TF32 anywhere).
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <map>
+#include <mutex>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
-constexpr int kThreads = kWarpsPerBlock * 32;
+constexpr int kMaxWarps = 8;
+constexpr int kMaxThreads = kMaxWarps * 32;
 constexpr int kMaxRhs = 4;
+constexpr int kMaxStages = 2;
 constexpr size_t kMaxSharedBytes = 232448;   // 227 KB, the most a block gets
 
 enum Mode { kFwd = 0, kBwd = 1, kBwdSub = 2 };
 
+// 16 bytes of a G row, widened to float32.  The pointer is generic: a
+// stage in shared memory, or device memory when no stage fits.
 template <typename T>
 struct Vec16;
 
@@ -115,7 +139,7 @@ template <>
 struct Vec16<float> {
     static constexpr int kElems = 4;
     __device__ static void load(const float* p, float (&v)[4]) {
-        const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+        const float4 q = *reinterpret_cast<const float4*>(p);
         v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
     }
 };
@@ -124,7 +148,7 @@ template <>
 struct Vec16<__nv_bfloat16> {
     static constexpr int kElems = 8;
     __device__ static void load(const __nv_bfloat16* p, float (&v)[8]) {
-        const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+        const uint4 q = *reinterpret_cast<const uint4*>(p);
         const unsigned int w[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
@@ -135,11 +159,30 @@ struct Vec16<__nv_bfloat16> {
     }
 };
 
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+    const unsigned int s =
+        static_cast<unsigned int>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 // What one sweep is given.  u, out: (S, R_total, n) complex64 with
 // `row_stride` = R_total * n elements between steps; this launch handles R
 // consecutive right-hand sides starting where the pointers point.
-// c: (S, n), or (S, 3, n) when `tri`.  carry0: R rows of n.  g_lo, g_w: the
-// lerp tables, or null.  scratch: 2 * R * n complex words, for fwd with tri.
+// c: (S, n), or (S, 3, n) when tri.  carry0: R rows of n.  g_lo, g_w: the
+// lerp tables, or null.  scratch: 2 * R * n complex words, for fwd with
+// tri.  Block b owns rows [b * rows_per_block, (b + 1) * rows_per_block)
+// of every step; `stages` is the depth of the ring of G in shared memory
+// (0: G is read from device memory directly).
 struct SweepArgs {
     const void* g_re;
     const void* g_im;
@@ -153,7 +196,7 @@ struct SweepArgs {
     const float2* carry0;
     float2* out;
     float2* scratch;
-    cudaStream_t stream;
+    int rows_per_block, stages;
 };
 
 __device__ __forceinline__ float2 cmul_add(float2 a, float2 b, float2 acc) {
@@ -164,51 +207,69 @@ __device__ __forceinline__ float2 cmul_add(float2 a, float2 b, float2 acc) {
     return acc;
 }
 
+// One element of the operand of a backward step with diagonal coupling:
+// u - c * o (bwd) or u + c * o (bwd_sub).
+template <int MODE>
+__device__ __forceinline__ float2 couple(float2 ui, float2 ci, float2 o) {
+    const float pr = ci.x * o.x - ci.y * o.y;
+    const float pi = ci.x * o.y + ci.y * o.x;
+    return (MODE == kBwd) ? make_float2(ui.x - pr, ui.y - pi)
+                          : make_float2(ui.x + pr, ui.y + pi);
+}
+
 // Prologue of a step with diagonal coupling: fills the shared operand with
 // other (fwd), u - c * other (bwd) or u + c * other (bwd_sub).
 template <int MODE, int R>
 __device__ __forceinline__ void diag_prologue(
         float* vr, float* vi, const float2* __restrict__ u,
         const float2* __restrict__ c, const float2* other, int n, int ld) {
-    // Loads first, uses after: a thread fetches kBatch elements of every
-    // stream before it combines any, so their latencies overlap (left to
-    // itself the compiler chained them: load, combine, load).  Elements
-    // past n load nothing and combine to the zero padding.
+    // Loads first, uses after: a thread fetches its kBatch elements of
+    // every stream and every right-hand side before it combines any, so
+    // the step pays one round trip to L2, not one per right-hand side.
+    // Elements past n load nothing and combine to the zero padding.
     constexpr int kBatch = 4;
+    const int nt = blockDim.x;
+    for (int base = threadIdx.x; base < ld; base += kBatch * nt) {
+        float2 o[R][kBatch], ui[R][kBatch], ci[kBatch];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-        for (int base = threadIdx.x; base < ld; base += kBatch * kThreads) {
-            float2 o[kBatch], ci[kBatch], ui[kBatch];
+        for (int j = 0; j < kBatch; ++j) {
+            const int i = base + j * nt;
+            ci[j] = make_float2(0.f, 0.f);
 #pragma unroll
-            for (int j = 0; j < kBatch; ++j) {
-                const int i = base + j * kThreads;
-                o[j] = ci[j] = ui[j] = make_float2(0.f, 0.f);
-                if (i < n) {
-                    o[j] = other[r * n + i];
-                    if (MODE != kFwd) {
-                        ci[j] = c[i];
-                        ui[j] = u[r * n + i];
-                    }
-                }
-            }
+            for (int r = 0; r < R; ++r)
+                o[r][j] = ui[r][j] = make_float2(0.f, 0.f);
+            if (i < n) {
+                if (MODE != kFwd) ci[j] = c[i];
 #pragma unroll
-            for (int j = 0; j < kBatch; ++j) {
-                const int i = base + j * kThreads;
-                if (i < ld) {
-                    float2 v = o[j];
-                    if (MODE != kFwd) {
-                        const float pr = ci[j].x * o[j].x - ci[j].y * o[j].y;
-                        const float pi = ci[j].x * o[j].y + ci[j].y * o[j].x;
-                        v = (MODE == kBwd)
-                            ? make_float2(ui[j].x - pr, ui[j].y - pi)
-                            : make_float2(ui[j].x + pr, ui[j].y + pi);
-                    }
-                    vr[r * ld + i] = v.x;
-                    vi[r * ld + i] = v.y;
+                for (int r = 0; r < R; ++r) {
+                    o[r][j] = __ldcg(other + r * n + i);
+                    if (MODE != kFwd) ui[r][j] = u[r * n + i];
                 }
             }
         }
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+            const int i = base + j * nt;
+            if (i >= ld) continue;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                const float2 v = (MODE == kFwd)
+                    ? o[r][j] : couple<MODE>(ui[r][j], ci[j], o[r][j]);
+                vr[r * ld + i] = v.x;
+                vi[r * ld + i] = v.y;
+            }
+        }
     }
+}
+
+__device__ __forceinline__ float2 shfl_up2(float2 v) {
+    return make_float2(__shfl_up_sync(0xffffffffu, v.x, 1),
+                       __shfl_up_sync(0xffffffffu, v.y, 1));
+}
+
+__device__ __forceinline__ float2 shfl_down2(float2 v) {
+    return make_float2(__shfl_down_sync(0xffffffffu, v.x, 1),
+                       __shfl_down_sync(0xffffffffu, v.y, 1));
 }
 
 // Prologue of a step with tridiagonal coupling: fills the shared operand
@@ -216,58 +277,73 @@ __device__ __forceinline__ void diag_prologue(
 // for R right-hand sides.  bwd / bwd_sub: base = u[k], x = next, sign - / +.
 // fwd: base = u[k-1], x = the raw product w_{k-1} of the step before, sign -,
 // so v = out[k-1] = prev, and the block stores the elements of its own rows
-// to `store`; at the first step (`first`) v is x = carry0 as it is.
-// Loads first, uses after, as in the kernel below.  x[i-1] and x[i+1] are
-// read only inside 0..n-1.
+// [own_lo, own_hi) to `store`; at the first step (`first`) v is x = carry0
+// as it is.  Neighbouring lanes hold neighbouring elements, so x[i-1] and
+// x[i+1] come from the next lanes by shuffle; lanes 0 and 31 load the one
+// neighbour outside their warp.  x[i-1] and x[i+1] are read only inside
+// 0..n-1.  Loads first, uses after, one round trip for every right-hand
+// side, as above.
 template <int MODE, int R>
 __device__ __forceinline__ void tri_prologue(
         float* vr, float* vi, const float2* __restrict__ base,
         const float2* __restrict__ c, const float2* x, float2* store,
-        bool first, int n, int ld) {
+        bool first, int n, int ld, int own_lo, int own_hi) {
     constexpr int kBatch = 4;
+    const int nt = blockDim.x;
+    const int lane = threadIdx.x & 31;
+    const float2 zero = make_float2(0.f, 0.f);
+    // the whole warp takes every pass together: the shuffles need all lanes
+    for (int w0 = threadIdx.x - lane; w0 < ld; w0 += kBatch * nt) {
+        const int i0 = w0 + lane;
+        float2 x0[R][kBatch], xe[R][kBatch], bs[R][kBatch];
+        float2 sub[kBatch], dia[kBatch], sup[kBatch];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-        for (int i0 = threadIdx.x; i0 < ld; i0 += kBatch * kThreads) {
-            float2 xm[kBatch], x0[kBatch], xp[kBatch];
-            float2 sub[kBatch], dia[kBatch], sup[kBatch], bs[kBatch];
+        for (int j = 0; j < kBatch; ++j) {
+            const int i = i0 + j * nt;
+            sub[j] = dia[j] = sup[j] = zero;
 #pragma unroll
-            for (int j = 0; j < kBatch; ++j) {
-                const int i = i0 + j * kThreads;
-                const float2 zero = make_float2(0.f, 0.f);
-                xm[j] = x0[j] = xp[j] = sub[j] = dia[j] = sup[j] = bs[j] = zero;
-                if (i < n) {
-                    x0[j] = x[r * n + i];
-                    if (!first) {
-                        if (i > 0) {
-                            xm[j] = x[r * n + i - 1];
-                            sub[j] = c[i];
-                        }
-                        if (i + 1 < n) {
-                            xp[j] = x[r * n + i + 1];
-                            sup[j] = c[2 * n + i];
-                        }
-                        dia[j] = c[n + i];
-                        bs[j] = base[r * n + i];
+            for (int r = 0; r < R; ++r) x0[r][j] = xe[r][j] = bs[r][j] = zero;
+            if (i < n) {
+#pragma unroll
+                for (int r = 0; r < R; ++r) x0[r][j] = __ldcg(x + r * n + i);
+                if (!first) {
+                    if (i > 0) sub[j] = c[i];
+                    if (i + 1 < n) sup[j] = c[2 * n + i];
+                    dia[j] = c[n + i];
+#pragma unroll
+                    for (int r = 0; r < R; ++r) {
+                        bs[r][j] = base[r * n + i];
+                        if (lane == 0 && i > 0)
+                            xe[r][j] = __ldcg(x + r * n + i - 1);
+                        else if (lane == 31 && i + 1 < n)
+                            xe[r][j] = __ldcg(x + r * n + i + 1);
                     }
                 }
             }
+        }
 #pragma unroll
-            for (int j = 0; j < kBatch; ++j) {
-                const int i = i0 + j * kThreads;
+        for (int j = 0; j < kBatch; ++j) {
+            const int i = i0 + j * nt;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                float2 v = x0[r][j];
+                if (!first) {
+                    // every lane shuffles, inside the row or not
+                    float2 xm = shfl_up2(x0[r][j]);
+                    float2 xp = shfl_down2(x0[r][j]);
+                    if (lane == 0) xm = xe[r][j];
+                    if (lane == 31) xp = xe[r][j];
+                    float2 t = zero;
+                    t = cmul_add(sub[j], xm, t);
+                    t = cmul_add(dia[j], x0[r][j], t);
+                    t = cmul_add(sup[j], xp, t);
+                    v = (MODE == kBwdSub)
+                        ? make_float2(bs[r][j].x + t.x, bs[r][j].y + t.y)
+                        : make_float2(bs[r][j].x - t.x, bs[r][j].y - t.y);
+                    if (MODE == kFwd && i < n && i >= own_lo && i < own_hi)
+                        store[r * n + i] = v;
+                }
                 if (i < ld) {
-                    float2 v = x0[j];
-                    if (!first) {
-                        float2 t = make_float2(0.f, 0.f);
-                        t = cmul_add(sub[j], xm[j], t);
-                        t = cmul_add(dia[j], x0[j], t);
-                        t = cmul_add(sup[j], xp[j], t);
-                        v = (MODE == kBwdSub)
-                            ? make_float2(bs[j].x + t.x, bs[j].y + t.y)
-                            : make_float2(bs[j].x - t.x, bs[j].y - t.y);
-                        if (MODE == kFwd && i < n
-                                && i / kWarpsPerBlock == (int)blockIdx.x)
-                            store[r * n + i] = v;
-                    }
                     vr[r * ld + i] = v.x;
                     vi[r * ld + i] = v.y;
                 }
@@ -276,121 +352,50 @@ __device__ __forceinline__ void tri_prologue(
     }
 }
 
-// The last row of a fwd sweep with tridiagonal coupling:
-// out = u - c w for `nrhs` right-hand sides, one thread per element.
-__global__ void __launch_bounds__(kThreads)
-sweep_tri_tail_kernel(const float2* __restrict__ u,
-                      const float2* __restrict__ c,
-                      const float2* __restrict__ w, float2* out, int n,
-                      int nrhs) {
-    const int idx = blockIdx.x * kThreads + threadIdx.x;
-    if (idx >= nrhs * n) return;
-    const int r = idx / n, i = idx - r * n;
-    float2 t = make_float2(0.f, 0.f);
-    if (i > 0) t = cmul_add(c[i], w[r * n + i - 1], t);
-    t = cmul_add(c[n + i], w[r * n + i], t);
-    if (i + 1 < n) t = cmul_add(c[2 * n + i], w[r * n + i + 1], t);
-    const float2 ui = u[idx];
-    out[idx] = make_float2(ui.x - t.x, ui.y - t.y);
-}
-
-// One step, logical index k.  Shared memory: vr[R][ld], vi[R][ld] = the
-// vectors the panel is multiplied with.  `other` is prev (fwd) or next
-// (bwd, bwd_sub); u, other and out point at the step's first right-hand
-// side, the r-th one lies r * n further on.  With TRI, c points at the
-// step's three rows; in fwd mode u, c and out are those of the step BEFORE,
-// `other` is its raw product (carry0 at the first step, `first`), and this
-// step's raw product goes to `raw` (see tri_prologue).
-template <typename T, int MODE, int R, bool LERP, bool TRI>
-__global__ void __launch_bounds__(kThreads)
-sweep_step_kernel(const T* __restrict__ g_re, const T* __restrict__ g_im,
-                  long long panel_stride, int k,
-                  const int* __restrict__ g_lo,
-                  const float* __restrict__ g_w,
-                  const float2* __restrict__ u, const float2* __restrict__ c,
-                  const float2* other, float2* out, float2* raw, int first,
-                  int n, int ld) {
-    extern __shared__ __align__(16) float smem[];
-    float* vr = smem;
-    float* vi = smem + R * ld;
-
-    if (TRI) {
-        tri_prologue<MODE, R>(vr, vi, u, c, other, out,
-                              MODE == kFwd && first != 0, n, ld);
-    } else {
-        diag_prologue<MODE, R>(vr, vi, u, c, other, n, ld);
-    }
-    __syncthreads();
-
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int row = blockIdx.x * kWarpsPerBlock + warp;
-    if (row >= n) return;
-
+// The sums of one row against the shared operand, per panel p and
+// right-hand side r, reduced over the warp: every lane holds every sum.
+// A lane takes the 16-byte chunks lane * E, lane * E + 32 E, ... in order.
+template <typename T, int R, int P, bool LERP>
+__device__ __forceinline__ void row_dot(
+        const T* const* g_re, const T* const* g_im,
+        const float* vr, const float* vi, int ld, int lane,
+        float (&acc_re)[P][R], float (&acc_im)[P][R]) {
     constexpr int E = Vec16<T>::kElems;
-    constexpr int P = LERP ? 2 : 1;     // panels read per step
-    const long long panel = LERP ? g_lo[k] : k;
-    const size_t row_off = (size_t)panel * panel_stride + (size_t)row * ld;
-    const T* pr_row[P];
-    const T* pi_row[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-        pr_row[p] = g_re + row_off + (size_t)p * panel_stride;
-        pi_row[p] = g_im + row_off + (size_t)p * panel_stride;
-    }
-    float acc_re[P][R], acc_im[P][R];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
 #pragma unroll
         for (int r = 0; r < R; ++r) acc_re[p][r] = acc_im[p][r] = 0.f;
     }
-    // Again loads first.  float32 planes: kChunks 16-byte pieces of each
-    // plane's row (64 registers of G) are in flight before the first is
-    // multiplied.  bfloat16 planes: one piece at a time, the loop unrolled
-    // and the loads left to the compiler, which measured faster for them.
-    constexpr bool kWide = sizeof(T) == 4;
-    constexpr int kChunks = kWide ? 32 / (P * E) : 1;
-    constexpr int kUnroll = kWide ? 1 : ((R == 1 && !LERP) ? 4 : 2);
+    constexpr int kUnroll = (R == 1 && !LERP) ? 4 : 2;
 #pragma unroll (kUnroll)
-    for (int col0 = lane * E; col0 < ld; col0 += kChunks * 32 * E) {
-        float gr[kChunks][P][E], gi[kChunks][P][E];
+    for (int col = lane * E; col < ld; col += 32 * E) {
+        float gr[P][E], gi[P][E];
 #pragma unroll
-        for (int ch = 0; ch < kChunks; ++ch) {
-            const int col = col0 + ch * 32 * E;
-            if (col < ld) {
-#pragma unroll
-                for (int p = 0; p < P; ++p) {
-                    Vec16<T>::load(pr_row[p] + col, gr[ch][p]);
-                    Vec16<T>::load(pi_row[p] + col, gi[ch][p]);
-                }
-            }
+        for (int p = 0; p < P; ++p) {
+            Vec16<T>::load(g_re[p] + col, gr[p]);
+            Vec16<T>::load(g_im[p] + col, gi[p]);
         }
 #pragma unroll
-        for (int ch = 0; ch < kChunks; ++ch) {
-            const int col = col0 + ch * 32 * E;
-            if (col >= ld) break;
+        for (int q = 0; q < E; q += 4) {
 #pragma unroll
-            for (int q = 0; q < E; q += 4) {
+            for (int r = 0; r < R; ++r) {
+                // 16-byte shared loads: col is a multiple of 4, ld of 8
+                const float4 a = *reinterpret_cast<const float4*>(
+                    vr + r * ld + col + q);
+                const float4 b = *reinterpret_cast<const float4*>(
+                    vi + r * ld + col + q);
+                const float xr[4] = {a.x, a.y, a.z, a.w};
+                const float xi[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-                for (int r = 0; r < R; ++r) {
-                    // 16-byte shared loads: col is a multiple of 4, ld of 8
-                    const float4 a = *reinterpret_cast<const float4*>(
-                        vr + r * ld + col + q);
-                    const float4 b = *reinterpret_cast<const float4*>(
-                        vi + r * ld + col + q);
-                    const float xr[4] = {a.x, a.y, a.z, a.w};
-                    const float xi[4] = {b.x, b.y, b.z, b.w};
+                for (int p = 0; p < P; ++p) {
 #pragma unroll
-                    for (int p = 0; p < P; ++p) {
-#pragma unroll
-                        for (int t = 0; t < 4; ++t) {
-                            const float g_r = gr[ch][p][q + t];
-                            const float g_i = gi[ch][p][q + t];
-                            acc_re[p][r] = fmaf(g_r, xr[t], acc_re[p][r]);
-                            acc_re[p][r] = fmaf(-g_i, xi[t], acc_re[p][r]);
-                            acc_im[p][r] = fmaf(g_r, xi[t], acc_im[p][r]);
-                            acc_im[p][r] = fmaf(g_i, xr[t], acc_im[p][r]);
-                        }
+                    for (int t = 0; t < 4; ++t) {
+                        const float g_r = gr[p][q + t];
+                        const float g_i = gi[p][q + t];
+                        acc_re[p][r] = fmaf(g_r, xr[t], acc_re[p][r]);
+                        acc_re[p][r] = fmaf(-g_i, xi[t], acc_re[p][r]);
+                        acc_im[p][r] = fmaf(g_r, xi[t], acc_im[p][r]);
+                        acc_im[p][r] = fmaf(g_i, xr[t], acc_im[p][r]);
                     }
                 }
             }
@@ -407,123 +412,337 @@ sweep_step_kernel(const T* __restrict__ g_re, const T* __restrict__ g_im,
             }
         }
     }
-    float w0 = 1.f, w1 = 0.f;
-    if (LERP) {
-        w0 = g_w[2 * k];
-        w1 = g_w[2 * k + 1];
-    }
-    // every lane holds every sum; lane r finishes right-hand side r
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-        if (lane != r) continue;
-        float sr = acc_re[0][r], si = acc_im[0][r];
-        if (LERP) {
-            sr = w0 * sr + w1 * acc_re[P - 1][r];
-            si = w0 * si + w1 * acc_im[P - 1][r];
-        }
-        float2 res;
-        if (MODE == kFwd && TRI) {
-            raw[r * n + row] = make_float2(sr, si);
-            continue;
-        } else if (MODE == kFwd) {
-            const float2 ci = c[row];
-            const float2 ui = u[r * n + row];
-            res.x = ui.x - (ci.x * sr - ci.y * si);
-            res.y = ui.y - (ci.x * si + ci.y * sr);
-        } else if (MODE == kBwd) {
-            res = make_float2(sr, si);
-        } else {
-            const float2 ui = u[r * n + row];
-            res = make_float2(ui.x - sr, ui.y - si);
-        }
-        out[r * n + row] = res;
-    }
 }
 
+// One whole sweep.  Shared memory: vr[R][ld], vi[R][ld] = the vectors the
+// panel is multiplied with, then `stages` stages of G, each the block's
+// rows as [row][panel p][plane re, im][ld].
 template <typename T, int MODE, int R, bool LERP, bool TRI>
-int run_sweep(const SweepArgs& a) {
-    const T* g_re = (const T*)a.g_re;
-    const T* g_im = (const T*)a.g_im;
-    const int blocks = (a.n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    const size_t smem = 2 * (size_t)R * a.ld * sizeof(float);
-    if (smem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            sweep_step_kernel<T, MODE, R, LERP, TRI>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    const size_t c_stride = (size_t)(TRI ? 3 : 1) * a.n;
+__global__ void __launch_bounds__(kMaxThreads)
+sweep_kernel(const SweepArgs a) {
+    extern __shared__ __align__(16) float smem[];
+    constexpr int P = LERP ? 2 : 1;     // panels read per step
+    constexpr int E = Vec16<T>::kElems;
     // fwd with tridiagonal coupling: step k leaves its raw product in
-    // scratch row k % 2 and finishes row k - 1 (see the note at the top)
+    // scratch row k % 2 and the next step finishes row k (see the note)
     constexpr bool kDeferred = TRI && MODE == kFwd;
-    float2* raw[2] = {a.scratch,
-                      kDeferred ? a.scratch + (size_t)R * a.n : nullptr};
-    for (int s = 0; s < a.S; ++s) {
-        // fwd walks rows first to last, the backward modes last to first;
-        // step row k uses panel k (dense), the one shared panel, or the
-        // pair of sample panels that the tables name for k (lerp)
-        const int k = (MODE == kFwd) ? s : a.S - 1 - s;
-        // the row whose u, c and out the kernel is handed
+    // bwd / bwd_sub with diagonal coupling: the owner of an element of
+    // out[k] also forms that element of the next step's operand, u[k-1] -+
+    // c[k-1] out[k], into scratch row (s + 1) % 2, so the next prologue
+    // reads one vector and not three
+    constexpr bool kOwnerOperand = !TRI && MODE != kFwd;
+    const int ld = a.ld, n = a.n, S = a.S;
+    float* vr = smem;
+    float* vi = smem + R * ld;
+    T* ring = reinterpret_cast<T*>(smem + 2 * R * ld);
+    const T* g_re = static_cast<const T*>(a.g_re);
+    const T* g_im = static_cast<const T*>(a.g_im);
+
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int warps = blockDim.x >> 5;
+    const int own_lo = blockIdx.x * a.rows_per_block;
+    const int own_n = min(a.rows_per_block, n - own_lo);
+    const size_t stage_elems = (size_t)a.rows_per_block * P * 2 * ld;
+    const size_t c_stride = (size_t)(TRI ? 3 : 1) * n;
+    // shared G: the one panel is loaded once for the whole sweep
+    const bool resident = a.panel_stride == 0 && !LERP;
+    float2* buf[2] = {a.scratch, a.scratch ? a.scratch + (size_t)R * n
+                                           : nullptr};
+    cg::grid_group grid = cg::this_grid();
+
+    // fwd walks rows first to last, the backward modes last to first; step
+    // row k uses panel k (dense), the one shared panel, or the pair of
+    // sample panels that the tables name for k (lerp)
+    auto step_row = [&](int s) { return MODE == kFwd ? s : S - 1 - s; };
+    auto panel_of = [&](int k) -> long long {
+        return LERP ? (long long)__ldg(a.g_lo + k) : (long long)k;
+    };
+    // Copy step s's rows of G into stage s % stages and commit one group
+    // (empty past the last step, so that every thread counts alike).
+    auto prefetch = [&](int s) {
+        if (s < S) {
+            const long long panel = panel_of(step_row(s));
+            T* stage = ring + (size_t)(s % a.stages) * stage_elems;
+            for (int lr = warp; lr < own_n; lr += warps) {
+                const size_t g_off = (size_t)panel * a.panel_stride
+                                     + (size_t)(own_lo + lr) * ld;
+#pragma unroll
+                for (int p = 0; p < P; ++p) {
+                    const size_t off = g_off + (size_t)p * a.panel_stride;
+                    T* d = stage + (size_t)(lr * P + p) * 2 * ld;
+                    for (int col = lane * E; col < ld; col += 32 * E) {
+                        cp_async16(d + col, g_re + off + col);
+                        cp_async16(d + ld + col, g_im + off + col);
+                    }
+                }
+            }
+        }
+        cp_async_commit();
+    };
+
+    if (a.stages > 0) {
+        prefetch(0);
+        if (!resident && a.stages > 1) prefetch(1);
+    }
+    for (int s = 0; s < S; ++s) {
+        const int k = step_row(s);
+        // the row whose u, c and out the prologue is handed
         const int row = (kDeferred && s > 0) ? k - 1 : k;
         const float2* other;
         if (s == 0) {
             other = a.carry0;
         } else if (kDeferred) {
-            other = raw[(k - 1) % 2];
+            other = buf[(k - 1) % 2];
         } else {
             other = a.out + (size_t)((MODE == kFwd) ? k - 1 : k + 1)
                                 * a.row_stride;
         }
-        const size_t row_off = (size_t)row * a.row_stride;
-        sweep_step_kernel<T, MODE, R, LERP, TRI>
-            <<<blocks, kThreads, smem, a.stream>>>(
-                g_re, g_im, a.panel_stride, k, a.g_lo, a.g_w, a.u + row_off,
-                a.c + (size_t)row * c_stride, other, a.out + row_off,
-                kDeferred ? raw[k % 2] : nullptr, s == 0, a.n, a.ld);
+        const float2* u = a.u + (size_t)row * a.row_stride;
+        const float2* c = a.c + (size_t)row * c_stride;
+        float2* out = a.out + (size_t)row * a.row_stride;
+        // What the epilogue of the warp's first row needs besides the sums,
+        // loaded before the prologue so that no load waits after the dot:
+        // lane r < R takes u and c of its element (fwd, bwd_sub), and with
+        // the owner's operand those of the next step's element too.
+        const int grow0 = own_lo + warp;
+        const bool pre = warp < own_n && lane < R;
+        const bool has_next = kOwnerOperand && s + 1 < S;
+        const float2 zero = make_float2(0.f, 0.f);
+        float2 pre_u = zero, pre_c = zero, pre_nu = zero, pre_nc = zero;
+        if (pre && !kDeferred && MODE != kBwd) {
+            pre_u = u[lane * n + grow0];
+            if (MODE == kFwd) pre_c = c[grow0];
+        }
+        if (pre && has_next) {
+            pre_nu = u[lane * n + grow0 - a.row_stride];
+            pre_nc = c[grow0 - c_stride];
+        }
+        float w0 = 1.f, w1 = 0.f;
+        if (LERP) {
+            w0 = __ldg(a.g_w + 2 * k);
+            w1 = __ldg(a.g_w + 2 * k + 1);
+        }
+        if (TRI) {
+            tri_prologue<MODE, R>(vr, vi, u, c, other, out,
+                                  MODE == kFwd && s == 0, n, ld, own_lo,
+                                  own_lo + own_n);
+        } else if (kOwnerOperand && s > 0) {
+            // the owners published this step's operand: copy it
+            diag_prologue<kFwd, R>(vr, vi, u, c, buf[s % 2], n, ld);
+        } else {
+            diag_prologue<MODE, R>(vr, vi, u, c, other, n, ld);
+        }
+        // this thread's copies of step s have landed (it reads only those)
+        if (a.stages == 2 && !resident) {
+            cp_async_wait<1>();
+        } else if (a.stages > 0) {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+
+        for (int lr = warp; lr < own_n; lr += warps) {
+            const int grow = own_lo + lr;
+            const bool first_row = lr == warp;
+            const T* pr_row[P];
+            const T* pi_row[P];
+            if (a.stages > 0) {
+                const T* base = ring
+                    + (size_t)(resident ? 0 : s % a.stages) * stage_elems
+                    + (size_t)lr * P * 2 * ld;
+#pragma unroll
+                for (int p = 0; p < P; ++p) {
+                    pr_row[p] = base + (size_t)p * 2 * ld;
+                    pi_row[p] = base + (size_t)p * 2 * ld + ld;
+                }
+            } else {
+                const size_t g_off = (size_t)panel_of(k) * a.panel_stride
+                                     + (size_t)grow * ld;
+#pragma unroll
+                for (int p = 0; p < P; ++p) {
+                    pr_row[p] = g_re + g_off + (size_t)p * a.panel_stride;
+                    pi_row[p] = g_im + g_off + (size_t)p * a.panel_stride;
+                }
+            }
+            float acc_re[P][R], acc_im[P][R];
+            row_dot<T, R, P, LERP>(pr_row, pi_row, vr, vi, ld, lane, acc_re,
+                                   acc_im);
+            // lane r finishes right-hand side r
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                if (lane != r) continue;
+                float sr = acc_re[0][r], si = acc_im[0][r];
+                if (LERP) {
+                    sr = w0 * sr + w1 * acc_re[P - 1][r];
+                    si = w0 * si + w1 * acc_im[P - 1][r];
+                }
+                float2 res;
+                if (kDeferred) {
+                    buf[k % 2][r * n + grow] = make_float2(sr, si);
+                    continue;
+                } else if (MODE == kFwd) {
+                    const float2 ci = first_row ? pre_c : c[grow];
+                    const float2 ui = first_row ? pre_u : u[r * n + grow];
+                    res.x = ui.x - (ci.x * sr - ci.y * si);
+                    res.y = ui.y - (ci.x * si + ci.y * sr);
+                } else if (MODE == kBwd) {
+                    res = make_float2(sr, si);
+                } else {
+                    const float2 ui = first_row ? pre_u : u[r * n + grow];
+                    res = make_float2(ui.x - sr, ui.y - si);
+                }
+                out[r * n + grow] = res;
+                if (has_next) {
+                    // this element of the next step's operand
+                    const float2 nu = first_row
+                        ? pre_nu : u[r * n + grow - a.row_stride];
+                    const float2 nc = first_row ? pre_nc
+                                                : c[grow - c_stride];
+                    buf[(s + 1) % 2][r * n + grow] = couple<MODE>(nu, nc, res);
+                }
+            }
+        }
+        // this thread has read its chunks of stage s % stages: refill it
+        if (a.stages > 0 && !resident) prefetch(s + a.stages);
+        if (s + 1 < S || kDeferred) grid.sync();
     }
+
     if (kDeferred) {
-        const int last = a.S - 1;
-        const size_t row_off = (size_t)last * a.row_stride;
-        sweep_tri_tail_kernel
-            <<<(R * a.n + kThreads - 1) / kThreads, kThreads, 0, a.stream>>>(
-                a.u + row_off, a.c + (size_t)last * c_stride, raw[last % 2],
-                a.out + row_off, a.n, R);
+        // the last row: out = u - c w for this block's rows
+        const int last = S - 1;
+        const float2* u = a.u + (size_t)last * a.row_stride;
+        const float2* c = a.c + (size_t)last * c_stride;
+        const float2* w = buf[last % 2];
+        float2* out = a.out + (size_t)last * a.row_stride;
+        for (int idx = threadIdx.x; idx < R * own_n; idx += blockDim.x) {
+            const int r = idx / own_n, i = own_lo + idx % own_n;
+            float2 t = make_float2(0.f, 0.f);
+            if (i > 0) t = cmul_add(c[i], __ldcg(w + r * n + i - 1), t);
+            t = cmul_add(c[n + i], __ldcg(w + r * n + i), t);
+            if (i + 1 < n) t = cmul_add(c[2 * n + i], __ldcg(w + r * n + i + 1),
+                                        t);
+            const float2 ui = u[r * n + i];
+            out[r * n + i] = make_float2(ui.x - t.x, ui.y - t.y);
+        }
     }
+}
+
+// Dynamic shared memory of a launch: the operand and `stages` stages of G.
+// ops/kernels/sweep.py `launch_plan` computes the same number.
+size_t shared_bytes(int R, size_t g_bytes, bool lerp, int ld,
+                    int rows_per_block, int stages) {
+    const size_t operand = 2 * (size_t)R * ld * sizeof(float);
+    const size_t stage = (size_t)rows_per_block * (lerp ? 2 : 1) * 2 * ld
+                         * g_bytes;
+    return operand + (size_t)stages * stage;
+}
+
+// What a launch asks of the runtime besides the launch itself, kept for
+// each kernel instance and device so that a sweep pays it once and not at
+// every call: the dynamic shared memory the kernel has been allowed, and
+// the blocks the card holds at once at the last (threads, shared memory)
+// asked.
+struct LaunchCache {
+    int allowed_smem = 0;
+    int threads = 0;
+    size_t smem = 0;
+    int resident = 0;
+};
+
+std::mutex launch_cache_mutex;
+
+// Allows `kernel` `smem` bytes of dynamic shared memory and sets
+// *resident to the blocks of `threads` threads that the current device
+// holds at once, asking the runtime only what `cache` does not hold yet.
+template <typename Kernel>
+cudaError_t prepare_launch(Kernel kernel, std::map<int, LaunchCache>& cache,
+                           int threads, size_t smem, int* resident) {
+    int device = 0;
+    cudaError_t e = cudaGetDevice(&device);
+    if (e != cudaSuccess) return e;
+    std::lock_guard<std::mutex> lock(launch_cache_mutex);
+    LaunchCache& c = cache[device];
+    if ((int)smem > c.allowed_smem) {
+        e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return e;
+        c.allowed_smem = (int)smem;
+    }
+    if (c.threads != threads || c.smem != smem) {
+        int sms = 0, per_sm = 0;
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+        if (e != cudaSuccess) return e;
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          threads, smem);
+        if (e != cudaSuccess) return e;
+        c.threads = threads;
+        c.smem = smem;
+        c.resident = sms * per_sm;
+    }
+    *resident = c.resident;
+    return cudaSuccess;
+}
+
+template <typename T, int MODE, int R, bool LERP, bool TRI>
+int run_sweep(const SweepArgs& a, int blocks, cudaStream_t stream) {
+    auto kernel = sweep_kernel<T, MODE, R, LERP, TRI>;
+    static std::map<int, LaunchCache> cache;
+    const size_t smem = shared_bytes(R, sizeof(T), LERP, a.ld,
+                                     a.rows_per_block, a.stages);
+    if (smem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
+    const int threads = 32 * min(a.rows_per_block, kMaxWarps);
+    // every block must be resident at once; the runtime refuses the launch
+    // otherwise, and so does this check, before it
+    int resident = 0;
+    cudaError_t e = prepare_launch(kernel, cache, threads, smem, &resident);
+    if (e != cudaSuccess) return (int)e;
+    if (blocks > resident) return (int)cudaErrorCooperativeLaunchTooLarge;
+    SweepArgs args = a;
+    void* params[] = {&args};
+    e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(blocks), dim3(threads), params, smem,
+                                    stream);
+    if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 
 template <typename T, int MODE, bool LERP, bool TRI>
-int dispatch_width(int nrhs, const SweepArgs& a) {
+int dispatch_width(int nrhs, const SweepArgs& a, int blocks,
+                   cudaStream_t s) {
     switch (nrhs) {
-        case 1: return run_sweep<T, MODE, 1, LERP, TRI>(a);
-        case 2: return run_sweep<T, MODE, 2, LERP, TRI>(a);
-        case 3: return run_sweep<T, MODE, 3, LERP, TRI>(a);
-        case 4: return run_sweep<T, MODE, 4, LERP, TRI>(a);
+        case 1: return run_sweep<T, MODE, 1, LERP, TRI>(a, blocks, s);
+        case 2: return run_sweep<T, MODE, 2, LERP, TRI>(a, blocks, s);
+        case 3: return run_sweep<T, MODE, 3, LERP, TRI>(a, blocks, s);
+        case 4: return run_sweep<T, MODE, 4, LERP, TRI>(a, blocks, s);
     }
     return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, bool LERP, bool TRI>
-int dispatch_mode(int mode, int nrhs, const SweepArgs& a) {
+int dispatch_mode(int mode, int nrhs, const SweepArgs& a, int blocks,
+                  cudaStream_t s) {
     switch (mode) {
-        case kFwd: return dispatch_width<T, kFwd, LERP, TRI>(nrhs, a);
-        case kBwd: return dispatch_width<T, kBwd, LERP, TRI>(nrhs, a);
-        case kBwdSub: return dispatch_width<T, kBwdSub, LERP, TRI>(nrhs, a);
+        case kFwd: return dispatch_width<T, kFwd, LERP, TRI>(nrhs, a, blocks, s);
+        case kBwd: return dispatch_width<T, kBwd, LERP, TRI>(nrhs, a, blocks, s);
+        case kBwdSub:
+            return dispatch_width<T, kBwdSub, LERP, TRI>(nrhs, a, blocks, s);
     }
     return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, bool TRI>
-int dispatch_lerp(int mode, int nrhs, const SweepArgs& a) {
-    return a.g_lo ? dispatch_mode<T, true, TRI>(mode, nrhs, a)
-                  : dispatch_mode<T, false, TRI>(mode, nrhs, a);
+int dispatch_lerp(int mode, int nrhs, const SweepArgs& a, int blocks,
+                  cudaStream_t s) {
+    return a.g_lo ? dispatch_mode<T, true, TRI>(mode, nrhs, a, blocks, s)
+                  : dispatch_mode<T, false, TRI>(mode, nrhs, a, blocks, s);
 }
 
 template <typename T>
-int dispatch_coupling(int mode, int nrhs, int tri, const SweepArgs& a) {
-    return tri ? dispatch_lerp<T, true>(mode, nrhs, a)
-               : dispatch_lerp<T, false>(mode, nrhs, a);
+int dispatch_coupling(int mode, int nrhs, int tri, const SweepArgs& a,
+                      int blocks, cudaStream_t s) {
+    return tri ? dispatch_lerp<T, true>(mode, nrhs, a, blocks, s)
+               : dispatch_lerp<T, false>(mode, nrhs, a, blocks, s);
 }
 
 }  // namespace
@@ -538,23 +757,37 @@ int dispatch_coupling(int mode, int nrhs, int tri, const SweepArgs& a) {
 // nrhs rows of n per step; carry0: nrhs rows of n; complex64.  tri: 0 for
 // diagonal coupling, c (S, n); 1 for tridiagonal, c (S, 3, n) as [sub,
 // diag, sup].  scratch: 2 * nrhs * n complex64 words of device memory that
-// mode 0 with tri = 1 writes and reads; otherwise unused and may be null.
+// the kernel writes and reads in mode 0 with tri = 1 (the raw products)
+// and in modes 1 and 2 with tri = 0 (the operands the owners publish);
+// otherwise unused and may be null.
+// blocks, rows_per_block, stages: the launch plan (ops/kernels/sweep.py
+// `launch_plan`): block b owns rows [b * rows_per_block, ...), the blocks
+// cover the n rows exactly once, and `stages` stages of G (0, 1 or 2) fit
+// the shared memory.  One cooperative launch; returns a CUDA error code
+// (0 on success), also when the runtime refuses the launch.
 extern "C" int hh_sweep(int mode, int g_bf16, const void* g_re,
                         const void* g_im, long long panel_stride, int ld,
                         int n, int S, int nrhs, long long row_stride,
                         const void* g_lo, const void* g_w, const void* u,
                         const void* c, int tri, const void* carry0,
-                        void* out, void* scratch, void* stream) {
+                        void* out, void* scratch, int blocks,
+                        int rows_per_block, int stages, void* stream) {
     if (ld % 8 != 0 || ld < n || n <= 0 || S <= 0 || nrhs < 1
             || nrhs > kMaxRhs || row_stride < (long long)nrhs * n
             || (g_lo == nullptr) != (g_w == nullptr)
-            || (tri && mode == kFwd && scratch == nullptr))
+            || ((tri != 0) == (mode == kFwd) && scratch == nullptr)
+            || rows_per_block < 1 || blocks < 1
+            || (long long)blocks * rows_per_block < n
+            || (long long)(blocks - 1) * rows_per_block >= n
+            || stages < 0 || stages > kMaxStages)
         return (int)cudaErrorInvalidValue;
     const SweepArgs a = {g_re, g_im, panel_stride, ld, n, S, row_stride,
                          (const int*)g_lo, (const float*)g_w,
                          (const float2*)u, (const float2*)c,
                          (const float2*)carry0, (float2*)out,
-                         (float2*)scratch, (cudaStream_t)stream};
-    if (g_bf16) return dispatch_coupling<__nv_bfloat16>(mode, nrhs, tri, a);
-    return dispatch_coupling<float>(mode, nrhs, tri, a);
+                         (float2*)scratch, rows_per_block, stages};
+    cudaStream_t s = (cudaStream_t)stream;
+    if (g_bf16)
+        return dispatch_coupling<__nv_bfloat16>(mode, nrhs, tri, a, blocks, s);
+    return dispatch_coupling<float>(mode, nrhs, tri, a, blocks, s);
 }

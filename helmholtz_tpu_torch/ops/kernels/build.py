@@ -37,7 +37,7 @@ _SIGNATURES = {
     "hh_sweep": [ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_longlong,
                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                  ctypes.c_longlong, _P, _P, _P, _P, ctypes.c_int, _P, _P, _P,
-                 _P],
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     "hh_gj_inverse": [_P, _P, ctypes.c_int, ctypes.c_int, _P],
     "hh_bsr_spmm": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, _P],

@@ -5,11 +5,15 @@ Replaces the TPU kernel `_kernel` / `pallas_gj_inverse` of the JAX package's
 `ops/pallas/gj_inverse.py`.  The CUDA source is `csrc/gj_inverse.cu`.
 
 Computes the unpivoted Gauss-Jordan inverse of every (k, k) complex64 matrix
-of a (B, k, k) batch, k <= 128: k rank-1 elimination steps on the panel
-held in shared memory, one block per matrix.
+of a (B, k, k) batch, k <= 128: k rank-1 elimination steps, one block per
+matrix, the panel held in registers (each thread a fixed tile of it) in a
+template width of 32, 64 or 128 with an identity tail, and one barrier a
+step.
 
 Bound: operations.  8 k^3 float32 operations a matrix on the CUDA cores
-against 16 k^2 bytes; see the source note.
+against 16 k^2 bytes; at a batch of one the floor is one launch and k
+dependent steps on one SM, so the design cuts a step's latency; see the
+source note.
 
 The plain version is `gauss_jordan_inverse_unpivoted`, the loop of k rank-1
 updates on tensors that the JAX package runs through its compiler.  The

@@ -13,10 +13,12 @@ coupling) or a tridiagonal matrix (three rows [sub, diag, sup] of n, the
 
 Bound: bytes.  Each step streams one n x n complex panel of G (two real
 planes, float32 or bfloat16) against R vectors that depend on the step
-before.  The kernel splits a panel's rows over the whole card (one warp per
-row) and orders the steps by one launch per step on the current stream; the
-C entry point loops over the steps, so one call here is one sweep.  That
-design is bound by launches, not bytes, at n = 1023; see the source note.
+before.  One call here is one sweep and ONE cooperative launch: the steps
+run inside a persistent kernel, one grid-wide barrier a step.  Each block
+owns a fixed range of rows (`launch_plan`) and copies its rows of the next
+step's panel into a ring of shared-memory stages before it waits at the
+barrier, so the stream of G does not wait on the carry; see the source
+note.
 
 Layout: the planes are (Mg, n, ld) with row pitch `g_ld(n)` elements and
 zero pad columns, so every row starts 16-byte aligned.
@@ -32,6 +34,9 @@ or raises.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from . import build
@@ -45,17 +50,25 @@ MAX_WIDTH = 4
 #: the most dynamic shared memory a block gets on the card, in bytes
 MAX_SHARED_BYTES = 232448
 
+#: the most stages of G the kernel's shared-memory ring holds
+MAX_STAGES = 2
+
 #: number of sweeps launched by `sweep` in this process, by (mode, number of
 #: right-hand sides in the launch, with lerp tables, with tridiagonal
-#: coupling).  One sweep is one call of the C entry point, which enqueues S
-#: step kernels (and one more for fwd with tridiagonal coupling).  This is
+#: coupling).  One sweep is one call of the C entry point, which makes one
+#: cooperative launch of the persistent kernel.  This is
 #: the one count kept; `launches`, `launches_by_mode`, `launches_by_width` and
 #: `launches_lerp` are read as attributes of the module and summed from it.
 launches_by_variant: dict = {}
 
+#: the `LaunchPlan` of the last launch of each variant, by the keys of
+#: `launches_by_variant`: what the card ran, beside how often
+plans_by_variant: dict = {}
+
 
 def reset_counts() -> None:
     launches_by_variant.clear()
+    plans_by_variant.clear()
 
 
 def _count(mode: str, width: int, lerp: bool, tri: bool) -> None:
@@ -83,6 +96,59 @@ def g_ld(n: int) -> int:
     """Row pitch (in elements) of the G planes: n rounded up to 8, so that a
     row of bfloat16 (and of float32) starts on a 16-byte boundary."""
     return -(-n // 8) * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one sweep is laid on the card: block b owns the rows
+    [b * rows_per_block, (b + 1) * rows_per_block) of every step (the last
+    block fewer), one warp a row at a time; `stages` stages of the block's
+    rows of G fit in shared memory beside the operand (0: G is read from
+    device memory directly); `shared_bytes` is the dynamic shared memory a
+    block takes.  `csrc/sweep.cu` computes the same bytes from the same
+    numbers."""
+    blocks: int
+    rows_per_block: int
+    stages: int
+    shared_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(n: int, width: int, g_bytes: int, lerp: bool,
+                shared: bool, sm_count: int) -> LaunchPlan:
+    """The launch plan of a sweep of n rows with `width` right-hand sides
+    over G of `g_bytes` bytes an element (2 or 4), two panels a step with
+    `lerp`, one panel for the whole sweep with `shared`, on a card of
+    `sm_count` SMs: at most one block per SM, so that every block is
+    resident, and as many stages of G as fit (two, else one, else none; a
+    shared panel is loaded once, into one stage)."""
+    rows_per_block = -(-n // sm_count)
+    blocks = -(-n // rows_per_block)
+    ld = g_ld(n)
+    operand = _operand_bytes(width, ld)
+    stage = rows_per_block * (2 if lerp else 1) * 2 * ld * g_bytes
+    stages = next(s for s in range(1 if shared else MAX_STAGES, -1, -1)
+                  if operand + s * stage <= MAX_SHARED_BYTES)
+    return LaunchPlan(blocks, rows_per_block, stages,
+                      operand + stages * stage)
+
+
+def _operand_bytes(width: int, ld: int) -> int:
+    """Shared memory of the kernel's vector operand: `width` right-hand
+    sides at row pitch ld, as float32 re and im planes.  Raises when it
+    alone passes what a block gets."""
+    operand = 2 * width * ld * 4
+    if operand > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"{width} right-hand sides at row pitch {ld} need {operand} bytes"
+            f" of shared memory, above the {MAX_SHARED_BYTES} a block gets; "
+            "solve fewer right-hand sides at once")
+    return operand
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_args(G_re, G_im, u, c, carry0, mode, g_lo, g_w):
@@ -206,12 +272,7 @@ def check_kernel_args(G_re, G_im, u, c, carry0, g_lo=None, g_w=None) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     width = min(u.shape[1] if u.ndim == 3 else 1, MAX_WIDTH)
-    smem = 2 * width * G_re.shape[-1] * 4
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"{width} right-hand sides at row pitch {G_re.shape[-1]} need "
-            f"{smem} bytes of shared memory, above the {MAX_SHARED_BYTES} a "
-            "block gets; solve fewer right-hand sides at once")
+    _operand_bytes(width, G_re.shape[-1])
 
 
 def sweep(G_re, G_im, u, c, carry0, *, mode: str, g_lo=None,
@@ -246,7 +307,7 @@ def sweep(G_re, G_im, u, c, carry0, *, mode: str, g_lo=None,
     One launch of the kernel carries at most MAX_WIDTH = 4 right-hand sides
     (32 KB of shared memory at ld = 1024).  A larger batch is walked in
     chunks of 4, each chunk a sweep of its own that streams G again; the
-    launch counters count each chunk.
+    launch counters count each chunk.  A launch the runtime refuses raises.
 
     Returns the (S, n) / (S, R, n) updated rows in natural order.
     """
@@ -259,16 +320,20 @@ def sweep(G_re, G_im, u, c, carry0, *, mode: str, g_lo=None,
     out = torch.empty_like(u)
     ld = g_ld(n)
     tri = c.ndim == 3
-    # fwd with tridiagonal coupling parks each step's raw product in one of
-    # two rows, for the next step to finish (see the source note)
+    # two rows of scratch: fwd with tridiagonal coupling parks each step's
+    # raw product there for the next step to finish, bwd / bwd_sub with
+    # diagonal coupling the next step's operand (see the source note)
     scratch = (torch.empty((2, min(R, MAX_WIDTH), n), dtype=u.dtype,
                            device=u.device)
-               if tri and mode == "fwd" else None)
+               if tri == (mode == "fwd") else None)
     lib = build.library()
+    sm_count = _sm_count(u.device)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         for r0 in range(0, R, MAX_WIDTH):
             width = min(MAX_WIDTH, R - r0)
+            plan = launch_plan(n, width, G_re.element_size(), lerp, shared,
+                               sm_count)
             skip = r0 * n * 8           # bytes to the chunk's first row
             status = lib.hh_sweep(
                 MODES.index(mode), int(G_re.dtype == torch.bfloat16),
@@ -278,7 +343,9 @@ def sweep(G_re, G_im, u, c, carry0, *, mode: str, g_lo=None,
                 g_w.data_ptr() if lerp else None,
                 u.data_ptr() + skip, c.data_ptr(), int(tri),
                 carry0.data_ptr() + skip, out.data_ptr() + skip,
-                scratch.data_ptr() if scratch is not None else None, stream)
+                scratch.data_ptr() if scratch is not None else None,
+                plan.blocks, plan.rows_per_block, plan.stages, stream)
             build.check(status, f"sweep[{mode}]")
             _count(mode, width, lerp, tri)
+            plans_by_variant[(mode, width, lerp, tri)] = plan
     return out

@@ -68,6 +68,24 @@ def test_gj_wrapper_takes_its_plain_version_on_the_cpu():
     assert not torch.equal(got, A)           # the input is left alone
 
 
+@pytest.mark.parametrize("k", [17, 33])
+def test_plain_gj_of_an_identity_tail_keeps_the_leading_block(k):
+    """The identity the kernel's padding relies on: a k x k matrix runs in
+    the next template width (64) as blockdiag(A, I), whose Gauss-Jordan
+    inverse is blockdiag(A^-1, I), step for step the same arithmetic on
+    the leading block."""
+    A = torch.from_numpy(dominant(7 + k, (2, k, k)))
+    padded = torch.eye(64, dtype=A.dtype).repeat(2, 1, 1)
+    padded[:, :k, :k] = A
+    got = k3.gauss_jordan_inverse_unpivoted(padded)
+    ref = k3.gauss_jordan_inverse_unpivoted(A)
+    _close(got[:, :k, :k], ref, 1e-14)
+    assert torch.equal(got[:, k:, k:], torch.eye(64 - k,
+                                                 dtype=A.dtype).expand(
+                                                     2, -1, -1))
+    assert not got[:, :k, k:].any() and not got[:, k:, :k].any()
+
+
 @pytest.mark.parametrize("bad,error", [
     (torch.zeros((2, 8, 8), dtype=torch.complex128), TypeError),
     (torch.zeros((1, 129, 129), dtype=torch.complex64), ValueError),

@@ -5,6 +5,7 @@ The CUDA kernels themselves run only on the card, where the smoke script at
 the repository root holds them against these same plain versions.
 """
 import dataclasses
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -166,6 +167,44 @@ def test_g_pitch_keeps_rows_16_byte_aligned():
         assert ld >= n and ld - n < 8
         assert (ld * 2) % 16 == 0 and (ld * 4) % 16 == 0
     assert k2.g_ld(1023) == 1024
+
+
+@pytest.mark.parametrize("n", [17, 33, 1023])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+def test_sweep_launch_plan_owns_every_row_once(n, g_dtype):
+    """The persistent kernel's plan on a 132-SM card, for every width, kind
+    of stack and coupling the wrapper takes (the coupling does not change
+    the plan): the blocks cover the rows exactly once, at most one block an
+    SM, and the shared memory fits a block.  The
+    bf16 variants at n = 1023, every full-width path's, double-buffer G."""
+    g_bytes = torch.empty((), dtype=g_dtype).element_size()
+    for width, lerp, shared, tri in itertools.product(
+            range(1, k2.MAX_WIDTH + 1), (False, True), (False, True),
+            (False, True)):
+        if lerp and shared:
+            continue
+        plan = k2.launch_plan(n, width, g_bytes, lerp, shared, 132)
+        owned = [b * plan.rows_per_block + i for b in range(plan.blocks)
+                 for i in range(plan.rows_per_block)
+                 if b * plan.rows_per_block + i < n]
+        assert sorted(owned) == list(range(n)), (width, lerp, shared, tri)
+        assert (plan.blocks - 1) * plan.rows_per_block < n
+        assert plan.blocks <= 132
+        assert plan.shared_bytes <= k2.MAX_SHARED_BYTES
+        stage = (plan.rows_per_block * (2 if lerp else 1) * 2 * k2.g_ld(n)
+                 * g_bytes)
+        assert plan.shared_bytes == 8 * width * k2.g_ld(n) \
+            + plan.stages * stage
+        want = 1 if shared else k2.MAX_STAGES
+        if n == 1023 and g_dtype == torch.bfloat16:
+            assert plan.stages == want
+        else:
+            assert 1 <= plan.stages <= want
+
+
+def test_sweep_launch_plan_refuses_an_operand_too_large():
+    with pytest.raises(ValueError, match="shared memory"):
+        k2.launch_plan(8192, 4, 2, False, False, 132)
 
 
 # -- the wrappers refuse what the kernels do not take -------------------------
