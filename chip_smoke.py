@@ -35,6 +35,16 @@ and the exact path:
                 block-sparse product (BSR) of the operator, `bsr_matvec`,
                 and held against the stencil product;
 
+Before the kernel phases it measures the card's peaks (`bench.roofline`:
+read-only and streaming memory rates, float32 matrix-product rate) and
+prints them on a line of their own; every kernel's bound is stated against
+the card's published peaks, with the bound at the measured peaks beside
+it.  K4 is also timed for its device work alone and its host cost, beside
+the library call's, and two calls on the same inputs must give equal bits;
+then every kernel instance its C entry point dispatches runs once, on a
+small matrix with empty block rows and block rows cut between units
+(pointers 16-byte aligned and not), against the plain version.
+
 After `solve` it profiles one apply of the main path's preconditioner
 with torch.profiler (`apply_profile`: K2's share of the device time, the
 device's idle share).  It checks by launch counts, set to zero before each
@@ -55,7 +65,6 @@ import math
 import os
 import sys
 import time
-import warnings
 
 import numpy as np
 import torch
@@ -64,6 +73,7 @@ import helmholtz_tpu_torch as ht
 from helmholtz_tpu_torch.fd import stencil as fd_stencil
 from helmholtz_tpu_torch.ops import dense
 from helmholtz_tpu_torch.ops import spmv as plain_spmv
+from helmholtz_tpu_torch.bench import roofline
 from helmholtz_tpu_torch.ops.kernels import build
 from helmholtz_tpu_torch.ops.kernels import bsr_spmm as k4
 from helmholtz_tpu_torch.ops.kernels import gj_inverse as k3
@@ -72,14 +82,18 @@ from helmholtz_tpu_torch.ops.kernels import sweep as k2
 from helmholtz_tpu_torch.ops.sparse_algebra import stencil_to_bsr
 from helmholtz_tpu_torch.precond import sweeping, sweeping9
 from helmholtz_tpu_torch.scripts.common import (
-    card, gj_matrices, lerp_tables, randc, random_g, rel_err, schur_blocks,
-    sweep_inputs, time_ms)
+    K4_INSTANCE_EMPTY, K4_INSTANCES, K4_RANDOM, PUBLISHED_BYTES_PER_S,
+    PUBLISHED_F32_FLOPS, bound_ms, bsr_as_csr, bsr_work, card, device_ms,
+    gj_matrices, host_ms, k4_instance, lerp_tables, randc, random_bsr,
+    random_g, rel_err, schur_blocks, sweep_inputs, time_ms)
 
-# Published peaks of one H100 SXM at its full power limit: device memory
-# rate and the float32 rate outside the tensor cores (every kernel does
-# float32 FMA on CUDA cores).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
+# The card's peaks as `main` measures them before the kernel phases
+# (`bench.roofline`): the read-only memory rate in bytes/s and the float32
+# matrix-product rate.  Every kernel's bound is taken at the card's
+# published peaks (each kernel reads far more than it writes, and does
+# float32 FMA outside the tensor cores); the bound at these beside it says
+# how far the card's reachable rates are from them.
+PEAKS = {}
 
 FULL = dict(n=1023, b=12, wave_num=128.0, const=100.0, problem="c1_f1",
             rtol=1e-3, restart=20, maxiter=60, g_dtype="bf16")
@@ -164,10 +178,13 @@ def fail(msg):
 
 
 def bound(bytes_moved, flops):
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    """The least time of the work against the card's published peaks, and
+    against the peaks measured in this run beside it."""
+    ms, by = bound_ms(bytes_moved, flops, PUBLISHED_BYTES_PER_S,
+                      PUBLISHED_F32_FLOPS)
+    measured, _ = bound_ms(bytes_moved, flops, PEAKS["read_bytes_per_s"],
+                           PEAKS["f32_flops"])
+    return {"bound_ms": ms, "bound_by": by, "bound_measured_ms": measured}
 
 
 # -- K1 -----------------------------------------------------------------------
@@ -201,7 +218,7 @@ def check_k1(A, gen, flush, timed):
     rec = {"n": n, "max_abs_err": err, "rel_err": rel, "tol": K1_TOL}
     if timed:
         points = L * n
-        rec["bound_ms"], rec["bound_by"] = bound(7 * 8 * points, 40 * points)
+        rec.update(bound(7 * 8 * points, 40 * points))
         rec["ms"] = time_ms(lambda: k1.stencil_matvec(A, u), 20, flush)
         rec["plain_ms"] = time_ms(lambda: plain_spmv.stencil_matvec(A, u),
                                   5, flush)
@@ -271,13 +288,14 @@ def check_k2(G_re, G_im, mode, gen, timed, rows=None, library_step=False,
         # and ONE product, whatever arithmetic the kernel chooses
         flops = ((8 * width + (6 if lerp else 0)) * n * n
                  + (24 * width * n if tri else 0)) * S
-        rec["bound_ms"], rec["bound_by"] = bound(
-            panels * panel_bytes + vec_bytes + table_bytes, flops)
+        rec.update(bound(panels * panel_bytes + vec_bytes + table_bytes,
+                         flops))
         if lerp:
             # what the device memory would carry with no reuse of a panel
             # between steps: two panels a step
-            rec["bound_no_reuse_ms"], _ = bound(
-                2 * S * panel_bytes + vec_bytes + table_bytes, flops)
+            rec["bound_no_reuse_ms"] = bound(
+                2 * S * panel_bytes + vec_bytes + table_bytes,
+                flops)["bound_ms"]
         k2.reset_counts()
         rec["ms"] = time_ms(
             lambda: k2.sweep(G_re, G_im, u, c, carry0, **kw), 3)
@@ -329,8 +347,7 @@ def check_k3(B, k, gen, flush, timed):
     rec = {"batch": B, "k": k, "max_abs_err": err, "rel_err": rel,
            "tol": K3_TOL}
     if timed:
-        rec["bound_ms"], rec["bound_by"] = bound(16 * k * k * B,
-                                                 8 * k ** 3 * B)
+        rec.update(bound(16 * k * k * B, 8 * k ** 3 * B))
         rec["ms"] = time_ms(lambda: k3.gj_inverse(A), 10, flush)
         rec["plain_ms"] = plain_ms
         rec["library_ms"] = time_ms(lambda: torch.linalg.inv(A), 10, flush)
@@ -432,47 +449,16 @@ def profile_apply():
 
 # -- K4 -----------------------------------------------------------------------
 
-def bsr_as_csr(A):
-    """The stored entries of a BSR matrix, explicit zeros included, as a
-    torch sparse CSR matrix: the library yardstick."""
-    bm, bn = A.blocksize
-    ip = A.indptr.tolist()
-    vals, cols, lens = [], [], []
-    for i in range(len(ip) - 1):
-        blk = A.data[ip[i]:ip[i + 1]]                 # (c, bm, bn)
-        c = blk.shape[0]
-        vals.append(blk.transpose(0, 1).reshape(-1))
-        cc = (A.indices[ip[i]:ip[i + 1], None].long() * bn
-              + torch.arange(bn, device=A.device)).reshape(-1)
-        cols.append(cc.expand(bm, c * bn).reshape(-1))
-        lens.append(torch.full((bm,), c * bn, device=A.device))
-    crow = torch.cat([torch.zeros(1, dtype=torch.int64, device=A.device),
-                      torch.cat(lens).cumsum(0)])
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")      # "sparse CSR support is beta"
-        return torch.sparse_csr_tensor(crow.int(), torch.cat(cols).int(),
-                                       torch.cat(vals), A.shape)
-
-
-def random_bsr(nbr, nbc, bm, bn, gen, dev):
-    """A random complex64 BSR matrix with about 40% of its blocks stored and
-    block row 3 empty."""
-    rng = np.random.default_rng(int(torch.randint(1 << 30, (1,),
-                                                  generator=gen, device=dev)))
-    keep = rng.random((nbr, nbc)) < 0.4
-    keep[3, :] = False
-    keep[0, 0] = True
-    br, bc = np.nonzero(keep)
-    data = randc((br.shape[0], bm, bn), gen, dev)
-    indptr = np.concatenate([[0], np.cumsum(keep.sum(axis=1))])
-    return ht.BSR(data, torch.as_tensor(bc, dtype=torch.int32, device=dev),
-                  torch.as_tensor(indptr, dtype=torch.int32, device=dev),
-                  (nbr * bm, nbc * bn), (bm, bn))
-
-
-def check_k4(A, K, gen, flush, timed, library=None):
-    X = randc((A.shape[1], K), gen, A.device)
+def check_k4(A, K, gen, flush, timed, library=None, X=None):
+    """K4 against its plain version on one input (X, random where not
+    given), and two calls on it for equal bits.  Timed: the call (CUDA
+    events around the Python call, after an L2 flush), the device's work of
+    the call alone (`device_ms`) and the call's host time, and the same
+    three for the library call."""
+    if X is None:
+        X = randc((A.shape[1], K), gen, A.device)
     got = k4.bsr_matmat(A, X)
+    again = k4.bsr_matmat(A, X)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = k4.plain_bsr_matmat(A, X)
@@ -483,15 +469,21 @@ def check_k4(A, K, gen, flush, timed, library=None):
     what = f"bsr_matmat blocks {A.data.shape[0]} x ({bm}, {bn}), K={K}"
     if not (rel <= K4_TOL and math.isfinite(rel)):
         fail(f"{what}: relative error {rel:.3e} > {K4_TOL}")
+    if not torch.equal(got, again):
+        fail(f"{what}: two calls on the same inputs differ")
+    plan = k4.launch_plan(A.shape[0] // bm, bm, bn, K, A.data.shape[0],
+                          k4._sm_count(A.device), A.data.data_ptr() % 16 == 0,
+                          X.data_ptr() % 16 == 0)
     rec = {"nblocks": A.data.shape[0], "blocksize": [bm, bn], "K": K,
-           "max_abs_err": err, "rel_err": rel, "tol": K4_TOL}
+           "max_abs_err": err, "rel_err": rel, "tol": K4_TOL,
+           "bits_equal": True, "plan": dataclasses.asdict(plan),
+           "instance": list(k4_instance(plan))}
     if timed:
-        stored = A.data.numel()
-        rec["bound_ms"], rec["bound_by"] = bound(
-            8 * (stored + A.shape[1] * K + A.shape[0] * K)
-            + 4 * (A.data.shape[0] + A.indptr.shape[0]),
-            8 * stored * K)
-        rec["ms"] = time_ms(lambda: k4.bsr_matmat(A, X), 5, flush)
+        rec.update(bound(*bsr_work(A, K)))
+        call = lambda: k4.bsr_matmat(A, X)      # noqa: E731
+        rec["ms"] = time_ms(call, 5, flush)
+        rec["device_ms"] = device_ms(call, 5, flush)
+        rec["host_ms"] = host_ms(call, 10)
         rec["plain_ms"] = plain_ms
         rec["library_ms"] = None
         if library is not None:
@@ -504,8 +496,50 @@ def check_k4(A, K, gen, flush, timed, library=None):
             _, lib_rel = rel_err(lib, ref)
             if not lib_rel <= 1e-4:
                 fail(f"the CSR yardstick disagrees: {lib_rel:.3e}")
-            rec["library_ms"] = time_ms(lambda: library @ X, 5, flush)
+            lib_call = lambda: library @ X      # noqa: E731
+            rec["library_ms"] = time_ms(lib_call, 5, flush)
+            rec["library_device_ms"] = device_ms(lib_call, 5, flush)
+            rec["library_host_ms"] = host_ms(lib_call, 10)
     return rec
+
+
+def misaligned(t):
+    """t's values in a contiguous tensor whose pointer lies 8 bytes past a
+    16-byte boundary (complex64: one element into its buffer)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 8
+    return out
+
+
+def check_k4_instances(gen, dev):
+    """Every kernel instance that K4's C entry point dispatches, once, at a
+    shape whose plan selects it (`K4_INSTANCES`: 16 x 12 blocks, block rows
+    0, 3 and 15 empty; on this card's SM count every chunk holds one stored
+    block, so every block row of two or more is cut between units and
+    summed by the fix-up kernel), then a streaming and a tiled case with
+    the data or X 8 bytes off a 16-byte boundary: each against the plain
+    version within K4_TOL, two calls with equal bits, and the plan's
+    instance the one wanted."""
+    cases = [(inst, shape, None) for inst, shape in K4_INSTANCES] + [
+        (("stream", 1, 1, 32), (24, 64, 1), "data"),
+        (("tiled", 2, True, False), (64, 40, 16), "X")]
+    recs = []
+    for inst, (bm, bn, K), shifted in cases:
+        A = random_bsr(16, 12, bm, bn, gen, dev, empty=K4_INSTANCE_EMPTY)
+        X = randc((A.shape[1], K), gen, dev)
+        if shifted == "data":
+            A = dataclasses.replace(A, data=misaligned(A.data))
+        elif shifted == "X":
+            X = misaligned(X)
+        rec = check_k4(A, K, gen, None, timed=False, X=X)
+        rec["misaligned"] = shifted
+        if tuple(rec["instance"]) != inst:
+            fail(f"bsr_matmat ({bm}, {bn}), K={K}: the plan selects "
+                 f"{rec['instance']}, want {list(inst)}")
+        recs.append(rec)
+    return recs
 
 
 # -- solves -------------------------------------------------------------------
@@ -714,6 +748,16 @@ def main():
     say("build", seconds=build.last_build_seconds,
         sources=[s.name for s in build.sources()])
 
+    # the card's peaks, beside which every bound below is stated again
+    PEAKS.update(read_bytes_per_s=roofline.measure_read_bw() * 1e9,
+                 streaming_bytes_per_s=roofline.measure_streaming_bw() * 1e9,
+                 f32_flops=roofline.measure_matmul_tflops() * 1e12)
+    say("peaks", read_gb_per_s=PEAKS["read_bytes_per_s"] / 1e9,
+        streaming_gb_per_s=PEAKS["streaming_bytes_per_s"] / 1e9,
+        f32_matmul_tflop_per_s=PEAKS["f32_flops"] / 1e12,
+        published_gb_per_s=PUBLISHED_BYTES_PER_S / 1e9,
+        published_f32_tflop_per_s=PUBLISHED_F32_FLOPS / 1e12)
+
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -896,19 +940,26 @@ def main():
     rec_k4 = k4_recs[0]
     del A_bsr, csr_x
     torch.cuda.empty_cache()
-    for (bm, bn), K in itertools.product(((64, 64), (128, 128), (48, 80)),
-                                         (16, 5, 1)):
+    for (bm, bn), K in K4_RANDOM:
         A_rand = random_bsr(16, 12, bm, bn, gen, dev)
         k4_recs.append(check_k4(A_rand, K, gen, flush, timed=True,
                                 library=bsr_as_csr(A_rand)))
         say("kernel", name="bsr_matmat", **k4_recs[-1])
+    k4_instances = check_k4_instances(gen, dev)
+    say("k4_instances", count=len(k4_instances),
+        max_rel_err=max(r["rel_err"] for r in k4_instances), tol=K4_TOL,
+        bits_equal=True,
+        multi_chunk_cases=sum(r["plan"]["chunks"] > 1 for r in k4_instances),
+        instances=[r["instance"] + [r["misaligned"]] for r in k4_instances])
 
     if args.kernels_only:
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as fh:
             json.dump({"nvidia_smi": smi, "kind": kind, "kernels_only": True,
+                       "peaks": PEAKS,
                        "stencil_matvec": rec_k1, "sweep_variants": variants,
                        "gj_inverse": k3_recs, "blocked_inverse": rec_inv,
-                       "bsr_matmat": k4_recs}, fh, indent=1)
+                       "bsr_matmat": k4_recs,
+                       "bsr_matmat_instances": k4_instances}, fh, indent=1)
         say("done", seconds=time.perf_counter() - t_start, kernels_only=True)
         return
 
@@ -1017,7 +1068,7 @@ def main():
     # launches counted during those paths
     by_name = {v["name"]: v for v in variants}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "bound_measured_ms")
     table = [{
         "name": "stencil_matvec", "route": "cuda",
         "source": "helmholtz_tpu_torch/csrc/spmv_stencil.cu",
@@ -1038,7 +1089,9 @@ def main():
             "replaces": f"helmholtz_tpu/ops/pallas/{replaces}",
             "launches": sum(c[name] for c in paths.values()),
             "launches_by_path": {p: c[name] for p, c in paths.items()},
-            **{k: rec[k] for k in keys}, "timed_at": shape})
+            **{k: rec[k] for k in keys}, "timed_at": shape,
+            **{k: rec[k] for k in ("device_ms", "library_device_ms")
+               if k in rec}})
     launched = {(key, path): c for path, cs in paths.items()
                 for key, c in cs["sweep_variants"].items()}
     for tri, lerp in itertools.product((False, True), (False, True)):
@@ -1092,9 +1145,11 @@ def main():
     seconds = time.perf_counter() - t_start
     with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as fh:
         json.dump({"nvidia_smi": smi, "kind": kind, "seconds": seconds,
+                   "peaks": PEAKS,
                    "stencil_matvec": rec_k1, "sweep_variants": variants,
                    "gj_inverse": k3_recs, "blocked_inverse": rec_inv,
-                   "bsr_matmat": k4_recs, "kernels": table,
+                   "bsr_matmat": k4_recs,
+                   "bsr_matmat_instances": k4_instances, "kernels": table,
                    "launches": paths, **record}, fh, indent=1)
     say("done", seconds=seconds)
     print(json.dumps({"kernels": table}), flush=True)

@@ -358,6 +358,7 @@ def run_solver(n: int, b: int, wave_num: float, const: float,
                stencil_gamma: float = 2.0 / 3.0,
                precond_refine: int = 0,
                precision: str = "f32",
+               inner_rtol: float = 1e-2,
                g_dtype: str = "working",
                fidelity: str = "corrected",
                hf_full_coupling: bool = True,
@@ -424,7 +425,8 @@ def run_solver(n: int, b: int, wave_num: float, const: float,
             g_dtype=g_dtype, fidelity=fidelity, d2_replace=d2_replace,
             setup_chunk=setup_chunk, factor_stride=factor_stride,
             gamma=stencil_gamma, cdtype=cdtype, g_compress=g_compress,
-            precision=precision, precond_refine=precond_refine, device=dev)
+            precision=precision, precond_refine=precond_refine,
+            inner_rtol=inner_rtol, device=dev)
     if dedup_hm is None:
         dedup_hm = (problem in fd_problems.ROW_INVARIANT_VELOCITY
                     and fidelity == "corrected")
@@ -459,7 +461,7 @@ def run_solver(n: int, b: int, wave_num: float, const: float,
     res = _solve_stage(A, P, f_grid, rtol, restart=restart, maxiter=maxiter,
                        use_precond=use_precond, method=method,
                        precond_refine=precond_refine, precision=precision,
-                       device=dev)
+                       inner_rtol=inner_rtol, device=dev)
     _sync(dev)
     t2 = time.perf_counter()
 
@@ -494,7 +496,8 @@ def _solve_report(A, f_grid, res: KrylovResult, n, *, init_time, solve_time,
 def _run_solver9(n, b, wave_num, const, alpha, problem, *, rtol, restart,
                  maxiter, method, precond, g_dtype, fidelity, d2_replace,
                  setup_chunk, factor_stride, gamma, cdtype, g_compress,
-                 precision, precond_refine, device) -> SolveReport:
+                 precision, precond_refine, inner_rtol,
+                 device) -> SolveReport:
     """`run_solver` for stencil='9pt': the 9-point discretization solved end
     to end with its own moving-PML sweeping preconditioner."""
     _sync(device)
@@ -511,7 +514,7 @@ def _run_solver9(n, b, wave_num, const, alpha, problem, *, rtol, restart,
     res = _solve_stage(A9, P, f9, rtol, restart=restart, maxiter=maxiter,
                        use_precond=use_precond, method=method,
                        precond_refine=precond_refine, precision=precision,
-                       device=device)
+                       inner_rtol=inner_rtol, device=device)
     _sync(device)
     t2 = time.perf_counter()
     sampled = factor_stride > 1 and (n - b) > factor_stride

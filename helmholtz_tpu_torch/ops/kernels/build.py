@@ -39,8 +39,7 @@ _SIGNATURES = {
                  ctypes.c_longlong, _P, _P, _P, _P, ctypes.c_int, _P, _P, _P,
                  ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     "hh_gj_inverse": [_P, _P, ctypes.c_int, ctypes.c_int, _P],
-    "hh_bsr_spmm": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int, _P],
+    "hh_bsr_spmm": [_P] * 8,
 }
 
 

@@ -1,5 +1,6 @@
-"""Inputs and the timer that `chip_smoke.py` and the measurement scripts
-share, so that every script times the kernels on the same data.
+"""Inputs, timers and bounds that `chip_smoke.py` and the measurement
+scripts share, so that every script times the kernels on the same data and
+states their bounds alike.
 
 Inputs are made on the given device from a seeded `torch.Generator`.
 Nothing here builds or launches a kernel by itself.
@@ -7,8 +8,12 @@ Nothing here builds or launches a kernel by itself.
 from __future__ import annotations
 
 import math
+import statistics
 import subprocess
+import time
+import warnings
 
+import numpy as np
 import torch
 
 import helmholtz_tpu_torch as ht
@@ -43,6 +48,70 @@ def time_ms(fn, reps, flush=None):
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def device_ms(fn, reps, flush=None):
+    """Median device time of fn() in ms, with the host's cost of the call
+    out of it: the runs are queued behind a sleep kernel long enough for
+    the host to queue them all, each between its own pair of CUDA events
+    (after `flush` is rewritten, where given, so the L2 cache starts cold),
+    so each pair times only the device's work of one call.  Raises if the
+    host could not queue them in the time of a 50 ms sleep."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 2_000_000                  # about 1 ms at the H100's clocks
+    while True:
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        slept = torch.cuda.Event()
+        torch.cuda._sleep(cycles)
+        slept.record()
+        for start, end in pairs:
+            if flush is not None:
+                flush.zero_()
+            start.record()
+            fn()
+            end.record()
+        queued_in_time = not slept.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return statistics.median(s.elapsed_time(e) for s, e in pairs)
+        if cycles >= 100_000_000:
+            raise RuntimeError("the host did not queue the runs within the "
+                               "sleep kernel's time")
+        cycles *= 4
+
+
+def host_ms(fn, reps):
+    """Median host time of one call of fn() in ms, each call started on an
+    idle device: what the call costs the host before it returns."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+# -- bounds ---------------------------------------------------------------------
+
+#: published peaks of one H100 SXM at its full power limit: device memory
+#: rate and the float32 rate outside the tensor cores
+PUBLISHED_BYTES_PER_S = 3.35e12
+PUBLISHED_F32_FLOPS = 67e12
+
+
+def bound_ms(bytes_moved, flops, bytes_per_s, flops_per_s):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over the float32 rate."""
+    t_bytes = bytes_moved / bytes_per_s * 1e3
+    t_ops = flops / flops_per_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 def rel_err(got, ref):
@@ -126,3 +195,83 @@ def schur_blocks(cfg, stride, count):
         if l == b - 1:
             return S
         T = dense.batched_inverse(S)
+
+
+# -- the block-sparse product (K4) ---------------------------------------------
+
+def bsr_as_csr(A):
+    """The stored entries of a BSR matrix, explicit zeros included, as a
+    torch sparse CSR matrix: the library yardstick."""
+    bm, bn = A.blocksize
+    ip = A.indptr.tolist()
+    vals, cols, lens = [], [], []
+    for i in range(len(ip) - 1):
+        blk = A.data[ip[i]:ip[i + 1]]                 # (c, bm, bn)
+        c = blk.shape[0]
+        vals.append(blk.transpose(0, 1).reshape(-1))
+        cc = (A.indices[ip[i]:ip[i + 1], None].long() * bn
+              + torch.arange(bn, device=A.device)).reshape(-1)
+        cols.append(cc.expand(bm, c * bn).reshape(-1))
+        lens.append(torch.full((bm,), c * bn, device=A.device))
+    crow = torch.cat([torch.zeros(1, dtype=torch.int64, device=A.device),
+                      torch.cat(lens).cumsum(0)])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")      # "sparse CSR support is beta"
+        return torch.sparse_csr_tensor(crow.int(), torch.cat(cols).int(),
+                                       torch.cat(vals), A.shape)
+
+
+def random_bsr(nbr, nbc, bm, bn, gen, dev, empty=(3,)):
+    """A random complex64 BSR matrix with about 40% of its blocks stored and
+    the block rows `empty` empty (block 0 of block row 0 stored unless row
+    0 is one of them)."""
+    rng = np.random.default_rng(int(torch.randint(1 << 30, (1,),
+                                                  generator=gen, device=dev)))
+    keep = rng.random((nbr, nbc)) < 0.4
+    keep[0, 0] = True
+    keep[list(empty), :] = False
+    br, bc = np.nonzero(keep)
+    data = randc((br.shape[0], bm, bn), gen, dev)
+    indptr = np.concatenate([[0], np.cumsum(keep.sum(axis=1))])
+    return ht.BSR(data, torch.as_tensor(bc, dtype=torch.int32, device=dev),
+                  torch.as_tensor(indptr, dtype=torch.int32, device=dev),
+                  (nbr * bm, nbc * bn), (bm, bn))
+
+
+def bsr_work(A, K):
+    """(bytes, operations) of Y = A X with X of K columns: every stored
+    block, X, Y, indices and indptr once; 8 real operations a stored entry
+    and column."""
+    stored = A.data.numel()
+    return (8 * (stored + A.shape[1] * K + A.shape[0] * K)
+            + 4 * (A.data.shape[0] + A.indptr.shape[0]), 8 * stored * K)
+
+
+#: the random shapes every K4 measurement times: (bm, bn) and K, on 16 x 12
+#: blocks, about 40% stored, block row 3 empty
+K4_RANDOM = [((bm, bn), K) for (bm, bn) in ((64, 64), (128, 128), (48, 80))
+             for K in (16, 5, 1)]
+
+
+def k4_instance(plan):
+    """The kernel instance of `csrc/bsr_spmm.cu` that a K4 launch plan
+    selects: ("stream", K tile, complex values a load of A, lanes a row) or
+    ("tiled", rows a thread, 16-byte copies of A, 16-byte copies of X)."""
+    if plan.tiled:
+        return ("tiled", plan.lanes, plan.vec == 2, plan.x_vec == 2)
+    return ("stream", plan.k_tile, plan.vec, plan.lanes)
+
+
+_STREAM_BN = {(2, 32): 64, (2, 16): 32, (2, 8): 48,
+              (1, 32): 63, (1, 16): 15, (1, 8): 23}
+
+#: every kernel instance the C entry point of K4 dispatches, each with a
+#: shape (bm, bn, K) whose plan selects it (`k4_instance`) on 16 x 12 blocks
+#: with block rows K4_INSTANCE_EMPTY empty; K pads to the K tile
+K4_INSTANCES = (
+    [(("stream", kt, v, lpr), (24, _STREAM_BN[(v, lpr)], kt - (kt > 2)))
+     for kt in (1, 2, 4, 8) for v in (1, 2) for lpr in (8, 16, 32)]
+    + [(("tiled", rm, aw, xw), (96 if rm == 3 else 64, 40 if aw else 41,
+                                16 if xw else 17))
+       for rm in (2, 3) for aw in (True, False) for xw in (True, False)])
+K4_INSTANCE_EMPTY = (0, 3, 15)

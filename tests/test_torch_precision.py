@@ -65,17 +65,20 @@ def test_ir_gmres_matches_jax_count_and_history(runs):
                                atol=1e-5 * np.abs(r_j.u).max())
 
 
-def test_ir_gmres_complex128_matches_jax_exactly():
+@pytest.mark.parametrize("inner_rtol", [1e-2, 1e-3])
+def test_ir_gmres_complex128_matches_jax_exactly(inner_rtol):
     """With complex128 as the working type rounding is out of the way, so
     the refinement's own rules (the stall test, the remaining budget given
     to each cycle, where a cycle's history lands) are held exactly: equal
     counts and flags, and u to 1e-10, over the refinement cycles that rtol
-    1e-9 takes at n = 33.  The history is held to 1e-7: its last entries
-    lie eight orders below the first, and a later cycle starts from a
-    residual that each package rounded in its own order (observed 1.7e-8
-    on one entry, below 1e-9 on the others)."""
+    1e-9 takes at n = 33, with `run_solver`'s default inner tolerance and
+    a tighter one.  The history is held to 1e-7: its last entries lie
+    eight orders below the first, and a later cycle starts from a residual
+    that each package rounded in its own order (observed 1.7e-8 on one
+    entry, below 1e-9 on the others)."""
     args = (33, 6, 4.0, 30.0)
-    kw = dict(problem="c1_f1", rtol=1e-9, precision="ir-df32", maxiter=60)
+    kw = dict(problem="c1_f1", rtol=1e-9, precision="ir-df32", maxiter=60,
+              inner_rtol=inner_rtol)
     r_j = jdriver.run_solver(*args, **kw)
     r_t = tdriver.run_solver(*args, device="cpu", **kw)
     assert r_t.config["dtype"] == "complex128" == r_j.config["dtype"]
@@ -90,6 +93,30 @@ def test_ir_gmres_complex128_matches_jax_exactly():
                                rtol=1e-4)
     np.testing.assert_allclose(r_t.u, r_j.u, rtol=1e-10,
                                atol=1e-10 * np.abs(r_j.u).max())
+
+
+class _Reached(Exception):
+    pass
+
+
+@pytest.mark.parametrize("stencil", ["5pt", "9pt"])
+def test_run_solver_forwards_inner_rtol_to_the_solve_stage(monkeypatch,
+                                                            stencil):
+    """`run_solver(inner_rtol=)` takes the JAX package's argument and hands
+    it to the solve stage on both stencils (the 9-point path through
+    `_run_solver9`); the stage is stubbed, so nothing is solved."""
+    seen = {}
+
+    def stage(*args, **kw):
+        seen.update(kw)
+        raise _Reached
+
+    monkeypatch.setattr(tdriver, "_solve_stage", stage)
+    with pytest.raises(_Reached):
+        tdriver.run_solver(17, 4, 2.0, 20.0, precond="none", stencil=stencil,
+                           precision="ir-df32", inner_rtol=1e-3,
+                           device="cpu")
+    assert seen["inner_rtol"] == 1e-3 and seen["precision"] == "ir-df32"
 
 
 def _diag_problem(K, dtype=torch.complex64):
