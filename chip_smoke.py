@@ -35,6 +35,30 @@ and the exact path:
                 block-sparse product (BSR) of the operator, `bsr_matvec`,
                 and held against the stencil product;
 
+then BiCGStab, the factor-free recompute preconditioner, checkpoints and
+the roofline of the solver's parts:
+
+  bicgstab      run_solver at the main configuration, method="bicgstab";
+  bicgstab_multi  solve_multi_rhs(method="bicgstab") on the main path's
+                operator and preconditioner, four seeded random sources,
+                each against its own single solve;
+  bicgstab9     run_solver at n = 511 on the 9-point scheme, BiCGStab;
+  recompute     run_solver at the main configuration, precond="recompute"
+                (stride 7: every apply re-factors 21 samples a chunk of
+                128 sweep rows through the Gauss-Jordan kernel and sweeps
+                each chunk through the sweep kernel's lerp mode), after one
+                recompute apply held against the stored f32 apply and the
+                apply's time split into re-factor, sweeps and H_F;
+  recompute_multi  run_multisolve, four sources, precond="recompute";
+  checkpoint    n = 255: build_preconditioner, save_preconditioner,
+                load_preconditioner (the same apply to the bit), and
+                resumable_gmres stopped after one checkpoint and resumed
+                (the uninterrupted run to the bit);
+  roofline_paths  bench.roofline measure_spmv / measure_setup /
+                measure_sweep at n = 1023;
+  profile_phases  an n = 255 run_solver inside utils.profiling.trace: the
+                exported trace holds the assemble, factor and solve phases;
+
 Before the kernel phases it measures the card's peaks (`bench.roofline`:
 read-only and streaming memory rates, float32 matrix-product rate) and
 prints them on a line of their own; every kernel's bound is stated against
@@ -58,6 +82,7 @@ Every phase prints one JSON line.  The last three lines are the kernel
 table, the card's name and power limit, and the verdict.
 """
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -70,6 +95,7 @@ import numpy as np
 import torch
 
 import helmholtz_tpu_torch as ht
+from helmholtz_tpu_torch import driver as ht_driver
 from helmholtz_tpu_torch.fd import stencil as fd_stencil
 from helmholtz_tpu_torch.ops import dense
 from helmholtz_tpu_torch.ops import spmv as plain_spmv
@@ -80,12 +106,16 @@ from helmholtz_tpu_torch.ops.kernels import gj_inverse as k3
 from helmholtz_tpu_torch.ops.kernels import spmv_stencil as k1
 from helmholtz_tpu_torch.ops.kernels import sweep as k2
 from helmholtz_tpu_torch.ops.sparse_algebra import stencil_to_bsr
-from helmholtz_tpu_torch.precond import sweeping, sweeping9
+from helmholtz_tpu_torch.precond import recompute, sweeping, sweeping9
+from helmholtz_tpu_torch.solve.batched import solve_multi_rhs
+from helmholtz_tpu_torch.solve.resumable import resumable_gmres
+from helmholtz_tpu_torch.utils import checkpoint, profiling
+from helmholtz_tpu_torch.bench.timing import (
+    PUBLISHED_BYTES_PER_S, PUBLISHED_F32_FLOPS, device_ms)
 from helmholtz_tpu_torch.scripts.common import (
-    K4_INSTANCE_EMPTY, K4_INSTANCES, K4_RANDOM, PUBLISHED_BYTES_PER_S,
-    PUBLISHED_F32_FLOPS, bound_ms, bsr_as_csr, bsr_work, card, device_ms,
-    gj_matrices, host_ms, k4_instance, lerp_tables, randc, random_bsr,
-    random_g, rel_err, schur_blocks, sweep_inputs, time_ms)
+    K4_INSTANCE_EMPTY, K4_INSTANCES, K4_RANDOM, bound_ms, bsr_as_csr,
+    bsr_work, card, gj_matrices, host_ms, k4_instance, lerp_tables, randc,
+    random_bsr, random_g, rel_err, schur_blocks, sweep_inputs, time_ms)
 
 # The card's peaks as `main` measures them before the kernel phases
 # (`bench.roofline`): the read-only memory rate in bytes/s and the float32
@@ -144,12 +174,32 @@ EXACT = dict(n=511, b=12, wave_num=64.0, const=81.0, problem="c1_f1",
 MAX_ITERS_EXACT = 2
 
 # K3 at the batches of the paths (1: the exact path's layer inverses and
-# H_F's; 146: the samples of the n = 1023 setup; 1000: a larger chunk) and
+# H_F's; 21: the samples of one recompute chunk at n = 1023; 146: the
+# samples of the n = 1023 setup; 1000: a larger chunk) and
 # panel widths 33 (odd), 64 (the blocked inverse's base case at every size
 # used) and 128 (the kernel's largest)
-K3_BATCHES = (1, 146, 1000)
+K3_BATCHES = (1, 21, 146, 1000)
 K3_WIDTHS = (33, 64, 128)
 K3_MAIN = (146, 64)          # the shape timed for the kernel table
+
+# BiCGStab on the main configuration and on the 9-point n = 511 one; the
+# JAX package's own test pins at most 6 iterations with the sweep
+BICG = dict(FULL, method="bicgstab")
+BICG9 = dict(NINE_SMALL, method="bicgstab")
+MAX_ITERS_BICG = 6
+# the recompute preconditioner at the main configuration (auto stride 7; G
+# is re-derived at the working precision, so no storage type), and batched
+RECOMPUTE = dict({k: v for k, v in FULL.items() if k != "g_dtype"},
+                 precond="recompute")
+RECOMPUTE_MULTI = dict(wave_nums=[128.0], consts=[100.0], n_sources=4,
+                       rtol=1e-3, precond="recompute")
+RECOMPUTE_APPLY_TOL = 1e-4   # relative 2-norm, recompute against stored f32
+# checkpoints and the profiled solve at n = 255
+SMALL_255 = dict(n=255, b=12, wave_num=32.0, const=62.0)
+# the paths whose sweeps run float32 G (the rest run bf16), and those that
+# run the recompute preconditioner's chunk-sized sweeps
+F32_PATHS = ("recompute", "recompute_multi", "checkpoint")
+CHUNK_PATHS = ("recompute", "recompute_multi")
 K4_WIDTHS = (1, 4, 16)       # columns of X on the n = 511 operator
 
 # Tolerances, relative to the largest entry of the plain version's result;
@@ -236,18 +286,21 @@ def check_k1(A, gen, flush, timed):
 # -- K2 -----------------------------------------------------------------------
 
 
-def variant_name(mode, bf16, shared=False, lerp=False, R=None, tri=False):
+def variant_name(mode, bf16, shared=False, lerp=False, R=None, tri=False,
+                 chunk=False):
     return (f"sweep_{mode}[{'bf16' if bf16 else 'f32'}"
             f"{',shared' if shared else ''}{',lerp' if lerp else ''}"
-            f"{',tri' if tri else ''}{f',R{R}' if R else ''}]")
+            f"{',tri' if tri else ''}{',chunk' if chunk else ''}"
+            f"{f',R{R}' if R else ''}]")
 
 
 def check_k2(G_re, G_im, mode, gen, timed, rows=None, library_step=False,
-             R=None, tables=None, tri=False):
+             R=None, tables=None, tri=False, chunk=False):
     """One sweep over `rows` grid rows (default: one per panel, or one per
     entry of the lerp tables) through the kernel and through the plain loop,
     for R right-hand sides (None: the unbatched call), with diagonal or
-    (`tri`) tridiagonal coupling."""
+    (`tri`) tridiagonal coupling.  `chunk` names the recompute
+    preconditioner's chunk-sized sweep."""
     Mg, n, _ = G_re.shape
     dev = G_re.device
     lerp = tables is not None
@@ -267,7 +320,7 @@ def check_k2(G_re, G_im, mode, gen, timed, rows=None, library_step=False,
     plain_ms = (time.perf_counter() - t0) * 1e3
     err, rel = rel_err(got, ref)
     name = variant_name(mode, G_re.dtype == torch.bfloat16, shared, lerp, R,
-                        tri)
+                        tri, chunk)
     if not (rel <= K2_TOL and math.isfinite(rel)):
         fail(f"{name} n={n}: relative error {rel:.3e} > {K2_TOL}")
     rec = {"name": name, "n": n, "steps": S, "max_abs_err": err,
@@ -570,6 +623,28 @@ def counted(fn):
     return out, counts, torch.cuda.max_memory_allocated()
 
 
+def k3_in_solve_phases(fn):
+    """(fn(), the K3 launches made inside the driver's "solve" phases): the
+    driver's `phase` is wrapped for the call, so the setup's and the
+    solve's shares of one run's count are read in that same run."""
+    inner = ht_driver.phase
+    window = [0]
+
+    @contextlib.contextmanager
+    def marked(name):
+        start = k3.launches
+        with inner(name):
+            yield
+        if name == "solve":
+            window[0] += k3.launches - start
+
+    ht_driver.phase = marked
+    try:
+        return fn(), window[0]
+    finally:
+        ht_driver.phase = inner
+
+
 def solve_with(cfg):
     return ht.run_solver(cfg["n"], cfg["b"], cfg["wave_num"], cfg["const"],
                          **{k: v for k, v in cfg.items()
@@ -719,6 +794,383 @@ def check_solve(name, cfg, rep, counts, peak, max_iters, exact_iters=None,
         fail(f"{name}: sweeps through {counts['sweep_variants']}")
     check_setup_launches(name, counts)
 
+# -- BiCGStab, recompute, checkpoints, roofline, phases -----------------------
+
+def check_bicgstab(name, cfg, rep, counts, peak, max_iters):
+    """BiCGStab from x0 = 0: one operator product for r0 = b - A x0 (kept
+    for the zero x0, as in the JAX package), two products and two applies
+    an iteration, one product for the final true residual; an apply is one
+    forward and one backward sweep.  So K1 = 2 it + 2 (none on the 9-point
+    path, whose product is plain tensor code) and K2 = 4 it."""
+    tri = cfg.get("stencil") == "9pt"
+    say(name, iterations=rep.iterations, converged=rep.converged,
+        true_residual=rep.true_residual, residual_norm=rep.residual_norm,
+        init_time_s=rep.init_time, solve_time_s=rep.solve_time,
+        peak_memory_bytes=peak, factor_stride=rep.config["factor_stride"],
+        launches=counts, history=[float(h) for h in rep.history])
+    it = rep.iterations
+    if not rep.converged:
+        fail(f"{name}: not converged")
+    if it > max_iters:
+        fail(f"{name}: {it} iterations > {max_iters}")
+    if not rep.true_residual < 1e-3:
+        fail(f"{name}: true residual {rep.true_residual:.3e}")
+    if not (np.isfinite(rep.u).all()
+            and rep.u.shape == (cfg["n"], cfg["n"])):
+        fail(f"{name}: solution not finite or of the wrong shape")
+    k1_count = counts["stencil_matvec"]
+    sweeps = {m: counts[f"sweep_{m}"] for m in ("fwd", "bwd", "bwd_sub")}
+    if k1_count != (0 if tri else 2 * it + 2):
+        fail(f"{name}: {k1_count} stencil launches, want 2 * {it} + 2")
+    if sweeps != {"fwd": 2 * it, "bwd": 2 * it, "bwd_sub": 0}:
+        fail(f"{name}: sweeps {sweeps}, want 2 * {it} forward and backward")
+    wrong = [k for k in counts["sweep_variants"]
+             if k != variant_key(k.split(",")[0], 1, False, tri)]
+    if wrong:
+        fail(f"{name}: sweeps through {counts['sweep_variants']}")
+    check_setup_launches(name, counts)
+
+
+def bicgstab_multi(gen, dev):
+    """The lockstep batched BiCGStab on the main path's operator and
+    preconditioner (its setup inside the counted window), four seeded
+    random sources; then each source's own single solve, outside it."""
+    n, b = FULL["n"], FULL["b"]
+    kw = dict(rtol=FULL["rtol"], maxiter=FULL["maxiter"])
+    state = {}
+
+    def run():
+        A, hm, _ = ht_driver._assemble_stage(
+            FULL["wave_num"], FULL["const"], 2.0, n=n, b=b,
+            problem=FULL["problem"], fidelity="corrected",
+            cdtype=torch.complex64, device=dev)
+        P = ht_driver._factor_stage(
+            A, hm, b=b, hf_full_coupling=True, d2_replace=True,
+            setup_chunk=sweeping.DEFAULT_SETUP_CHUNK, g_dtype="bf16",
+            factor_stride=LERP_STRIDE, device=dev)
+        del hm
+        X = randc((4, n * n), gen, dev)
+        mv = lambda V: torch.stack(                       # noqa: E731
+            [k1.stencil_matvec_flat(A, v) for v in V])
+        state.update(A=A, P=P, X=X)
+        t0 = time.perf_counter()
+        res = solve_multi_rhs(mv, X, M=P, method="bicgstab", **kw)
+        torch.cuda.synchronize()
+        state["solve_s"] = time.perf_counter() - t0
+        return res
+
+    res, counts, peak = counted(run)
+    A, P, X = state["A"], state["P"], state["X"]
+    singles = [ht.bicgstab(lambda v: k1.stencil_matvec_flat(A, v), x, M=P,
+                           **kw) for x in X]
+    its = res.iterations.tolist()
+    one = [s.iterations for s in singles]
+    true_res = [((k1.stencil_matvec_flat(A, res.x[i]) - X[i]).norm()
+                 / X[i].norm()).item() for i in range(4)]
+    say("bicgstab_multi", iterations=its, single_iterations=one,
+        converged=res.converged.tolist(), true_residuals=true_res,
+        solve_time_s=state["solve_s"], peak_memory_bytes=peak,
+        launches=counts)
+    if not res.converged.all():
+        fail(f"bicgstab_multi: not converged: {res.converged.tolist()}")
+    if any(abs(a - c) > 1 for a, c in zip(its, one)):
+        fail(f"bicgstab_multi: iterations {its} against single solves {one}")
+    # products: r0 and the final residual per source, two per source and
+    # step; sweeps: two applies a step of the width still iterating
+    want = {}
+    for j in range(max(its)):
+        width = sum(1 for it in its if it > j)
+        for mode in ("fwd", "bwd"):
+            key = variant_key(mode, width, False)
+            want[key] = want.get(key, 0) + 2
+    if counts["stencil_matvec"] != 2 * sum(its) + 8:
+        fail(f"bicgstab_multi: {counts['stencil_matvec']} stencil launches,"
+             f" want 2 * {sum(its)} + 8")
+    if counts["sweep_variants"] != want:
+        fail(f"bicgstab_multi: sweeps {counts['sweep_variants']}, want "
+             f"{want}")
+    if not counts["sweep_variants"].get(variant_key("bwd", 4, False)):
+        fail("bicgstab_multi: K2 did not run its R = 4 mode")
+    check_setup_launches("bicgstab_multi", counts)
+    del A, P, X
+    torch.cuda.empty_cache()
+    return counts
+
+
+def range_device_ms(prof, names):
+    """Device time in ms of the kernels launched inside each named range of
+    a profile, summed over the range's occurrences."""
+    out = {}
+    for e in prof.key_averages():
+        if e.key in names:
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = e.cuda_time_total
+            out[e.key] = us / 1e3
+    return out
+
+
+def recompute_apply_check(dev):
+    """One recompute apply at the main configuration (stride 7) against the
+    stored apply over float32 planes at the same stride, for the same f;
+    the K3 launches of the recompute setup alone (H_F's stack, fixed by the
+    shapes; printed beside the setup's share in the solves' own runs); and
+    one apply under torch.profiler, split into re-factor, sweeps and
+    H_F."""
+    n, b = FULL["n"], FULL["b"]
+    A, c_full, f = ht_driver._assemble_a_stage(
+        FULL["wave_num"], FULL["const"], 2.0, n=n, b=b,
+        problem=FULL["problem"], fidelity="corrected",
+        cdtype=torch.complex64, device=dev)
+    f = f.to(torch.complex64)
+    cfg = ht.HelmholtzConfig(n=n, b=b, wave_num=FULL["wave_num"],
+                             const=FULL["const"])
+    hm = fd_stencil.build_hm_stencils(n, b, cfg.const, cfg.eta, cfg.omega,
+                                      cfg.h, c_full, fidelity="corrected",
+                                      complex_dtype=torch.complex64)
+    P = sweeping.setup_preconditioner(A, hm, b, g_dtype=torch.float32,
+                                      factor_stride=LERP_STRIDE)
+    del hm
+    stored = sweeping.apply_preconditioner(P, f)
+    del P
+    torch.cuda.empty_cache()
+
+    def setup():
+        return ht_driver._factor_recompute_stage(
+            A, c_full, FULL["wave_num"], FULL["const"], 2.0, n=n, b=b,
+            fidelity="corrected", hf_full_coupling=True, d2_replace=True,
+            factor_stride=LERP_STRIDE)
+
+    R, setup_counts, _ = counted(setup)
+    got = recompute.apply_recompute(R, f)
+    torch.cuda.synchronize()
+    rel = ((got - stored).norm() / stored.norm()).item()
+    fwd, bwd = recompute.chunk_plan(R)
+    # one more apply, timed whole, then one under the profiler
+    t0 = time.perf_counter()
+    _, apply_counts, apply_peak = counted(
+        lambda: recompute.apply_recompute(R, f))
+    apply_s = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        recompute.apply_recompute(R, f)
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.events():
+        # the named ranges appear on the device's timeline too; they are
+        # read by range_device_ms, and kept out of the kernels' sum
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.name.startswith("recompute."):
+            by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
+                                 + e.time_range.elapsed_us() / 1e3)
+    busy = sum(by_kernel.values())
+    split = {
+        "apply_s": apply_s, "apply_peak_bytes": apply_peak,
+        "chunks_fwd": len(fwd), "chunks_bwd": len(bwd),
+        "chunk_rows": recompute.chunk_rows(R),
+        "samples_per_chunk": recompute.sample_window(
+            recompute.chunk_rows(R), LERP_STRIDE),
+        "launches_per_apply": apply_counts,
+        "device_busy_ms": busy,
+        "k3_kernel_ms": sum(t for k, t in by_kernel.items()
+                            if "gj_inverse_kernel" in k),
+        "k2_kernel_ms": sum(t for k, t in by_kernel.items()
+                            if "sweep_kernel" in k),
+        "range_device_ms": range_device_ms(
+            prof, ("recompute.refactor", "recompute.sweep", "recompute.hf")),
+        "top_kernels_ms": [[k[:100], t] for k, t in sorted(
+            by_kernel.items(), key=lambda kv: -kv[1])[:8]],
+    }
+    say("recompute_apply", n=n, factor_stride=LERP_STRIDE,
+        rel_2norm_vs_stored_f32=rel, tol=RECOMPUTE_APPLY_TOL,
+        setup_launches=setup_counts, **split)
+    if not rel <= RECOMPUTE_APPLY_TOL:
+        fail(f"recompute_apply: {rel:.3e} from the stored f32 apply > "
+             f"{RECOMPUTE_APPLY_TOL}")
+    k3_apply = apply_counts["gj_inverse"]
+    if k3_apply < 1 or apply_counts["sweep"] != len(fwd) + len(bwd) \
+            or apply_counts["sweep_lerp"] != apply_counts["sweep"]:
+        fail(f"recompute_apply: launches {apply_counts}")
+    return setup_counts["gj_inverse"], k3_apply, len(fwd) + len(bwd), split
+
+
+def check_recompute(rep, counts, peak, stored_peak, k3_setup, k3_solve,
+                    k3_apply, chunks):
+    """GMRES from x0 = 0 makes it + cycles + 1 applies; each apply walks
+    `chunks` chunk sweeps (K2) and re-factors every chunk (K3, k3_apply
+    launches an apply).  k3_solve: the K3 launches inside the run's solve
+    phase, read in the run (`k3_in_solve_phases`)."""
+    it = rep.iterations
+    cycles = max(1, -(-it // RECOMPUTE.get("restart", 20)))
+    applies = it + cycles + 1
+    say("recompute", iterations=it, converged=rep.converged,
+        true_residual=rep.true_residual, residual_norm=rep.residual_norm,
+        init_time_s=rep.init_time, solve_time_s=rep.solve_time,
+        peak_memory_bytes=peak, stored_solve_peak_bytes=stored_peak,
+        factor_stride=rep.config["factor_stride"], applies=applies,
+        k3_launches_solve_window=k3_solve,
+        k3_launches_setup=counts["gj_inverse"] - k3_solve,
+        k3_launches_setup_alone=k3_setup, launches=counts,
+        history=[float(h) for h in rep.history])
+    if not rep.converged or it > ORACLE_ITERS_FULL + 1:
+        fail(f"recompute: {it} iterations, converged {rep.converged}")
+    if not rep.true_residual < 1e-3:
+        fail(f"recompute: true residual {rep.true_residual:.3e}")
+    if k3_solve <= 0 or k3_solve != k3_apply * applies:
+        fail(f"recompute: {k3_solve} K3 launches in the solve window, want "
+             f"{k3_apply} x {applies} applies")
+    if counts["sweep"] != chunks * applies \
+            or counts["sweep_lerp"] != counts["sweep"]:
+        fail(f"recompute: {counts['sweep']} sweeps, want {chunks} chunks x "
+             f"{applies} applies, all lerp")
+    if counts["stencil_matvec"] != it + cycles:
+        fail(f"recompute: {counts['stencil_matvec']} stencil launches")
+    if not peak < stored_peak:
+        fail(f"recompute: peak {peak} not below the stored path's "
+             f"{stored_peak}")
+
+
+def check_recompute_multi(recs, counts, peak, k3_setup, k3_solve, k3_apply,
+                          fwd_bwd):
+    """The batched GMRES's applies (`batched_launches`), each walking the
+    chunk sweeps at its width and re-factoring every chunk ONCE for the
+    batch: K3 per apply equals the single-RHS path's."""
+    say("recompute_multi", records=[{k: r[k] for k in (
+        "wave_num", "iterations", "converged", "true_residuals",
+        "init_time_s", "solve_time_s")} for r in recs],
+        peak_memory_bytes=peak, k3_launches_solve_window=k3_solve,
+        k3_launches_setup=counts["gj_inverse"] - k3_solve,
+        k3_launches_setup_alone=k3_setup, launches=counts)
+    [r] = recs
+    if not all(r["converged"]) or max(r["iterations"]) > MAX_ITERS_BATCHED:
+        fail(f"recompute_multi: {r['iterations']}, {r['converged']}")
+    if not all(x < 1e-3 for x in r["true_residuals"]):
+        fail(f"recompute_multi: true residuals {r['true_residuals']}")
+    products, applies_by_key = batched_launches([r["iterations"]], True)
+    applies = sum(c for k, c in applies_by_key.items()
+                  if k.startswith("fwd"))
+    want = {k: c * fwd_bwd[0 if k.startswith("fwd") else 1]
+            for k, c in applies_by_key.items()}
+    if counts["sweep_variants"] != want:
+        fail(f"recompute_multi: sweeps {counts['sweep_variants']}, want "
+             f"{want}")
+    if counts["stencil_matvec"] != products:
+        fail(f"recompute_multi: {counts['stencil_matvec']} stencil "
+             f"launches, want {products}")
+    if k3_solve != k3_apply * applies:
+        fail(f"recompute_multi: {k3_solve} K3 launches for {applies} "
+             f"applies; the single-RHS apply makes {k3_apply}")
+
+
+def checkpoint_phase(out_dir):
+    """At n = 255 on the card: build, save, load (the loaded state's apply
+    equal to the bit), then resumable GMRES(2) stopped after its first
+    checkpoint and resumed in a second call, against one uninterrupted
+    GMRES(2): the same count and x to the bit (both run the same kernels
+    on the same inputs in the same order)."""
+    paths = [os.path.join(out_dir, name) for name in
+             ("checkpoint_P.npz", "checkpoint_krylov.npz")]
+    kw = dict(restart=2, rtol=1e-5)
+
+    def run():
+        P, A, f = ht.build_preconditioner(
+            SMALL_255["n"], SMALL_255["b"], SMALL_255["wave_num"],
+            SMALL_255["const"])
+        t0 = time.perf_counter()
+        checkpoint.save_preconditioner(paths[0], P)
+        P2 = checkpoint.load_preconditioner(paths[0])
+        io_s = time.perf_counter() - t0
+        v = f.reshape(-1)
+        same_apply = torch.equal(P(v), P2(v))
+        mv = lambda x: k1.stencil_matvec_flat(A, x)       # noqa: E731
+        ref = ht.gmres(mv, v, M=P2, maxiter=60, **kw)
+        if os.path.exists(paths[1]):
+            os.remove(paths[1])
+        part = resumable_gmres(mv, v, M=P2, checkpoint_path=paths[1],
+                               maxiter=2, **kw)
+        full = resumable_gmres(mv, v, M=P2, checkpoint_path=paths[1],
+                               maxiter=60, **kw)
+        return same_apply, ref, part, full, io_s
+
+    (same_apply, ref, part, full, io_s), counts, peak = counted(run)
+    file_bytes = os.path.getsize(paths[0])
+    for path in paths:
+        os.remove(path)
+    say("checkpoint", n=SMALL_255["n"], file_bytes=file_bytes,
+        save_load_s=io_s, apply_bits_equal=same_apply,
+        iterations=ref.iterations, first_call_iterations=part.iterations,
+        resumed_iterations=full.iterations,
+        x_bits_equal=torch.equal(full.x, ref.x), peak_memory_bytes=peak,
+        launches=counts)
+    if not same_apply:
+        fail("checkpoint: the loaded state's apply differs")
+    if not (ref.converged and ref.iterations > 2 and part.iterations == 2
+            and not part.converged):
+        fail(f"checkpoint: uninterrupted {ref.iterations} iterations, first "
+             f"call {part.iterations}: no restart boundary was crossed")
+    if full.iterations != ref.iterations or not torch.equal(full.x, ref.x):
+        fail(f"checkpoint: resumed {full.iterations} iterations against "
+             f"{ref.iterations}, x equal {torch.equal(full.x, ref.x)}")
+    check_setup_launches("checkpoint", counts)
+    return counts
+
+
+def roofline_paths():
+    """`bench.roofline`'s measures of the solver's three parts at n = 1023,
+    against the peaks measured at the start of this run."""
+    pk = {"read_gb_s": PEAKS["read_bytes_per_s"] / 1e9,
+          "stream_gb_s": PEAKS["streaming_bytes_per_s"] / 1e9,
+          "matmul_tflops": PEAKS["f32_flops"] / 1e12}
+    n, b = FULL["n"], FULL["b"]
+    rec = {"spmv": roofline.measure_spmv(n, peaks=pk),
+           "setup": roofline.measure_setup(n, b, peaks=pk),
+           "sweep": roofline.measure_sweep(n, b, peaks=pk)}
+    torch.cuda.empty_cache()
+    say("roofline_paths", **rec)
+    # a share of a peak above 1 means the model counts traffic or work
+    # that the call did not do (such as operands served from the L2
+    # cache); the setup's JAX-model share counts each inverse's work
+    # twice, so its own-count `_gj` share is the one held to 1
+    shares = {"spmv": ("roofline_fraction", "roofline_fraction_measured"),
+              "setup": ("roofline_fraction_gj",
+                        "roofline_fraction_gj_measured",
+                        "expand_fraction", "expand_fraction_measured"),
+              "sweep": ("roofline_fraction", "roofline_fraction_measured")}
+    for part, r in rec.items():
+        for key in ("roofline_fraction", "roofline_fraction_measured"):
+            if not (math.isfinite(r[key]) and 0 < r[key]):
+                fail(f"roofline_paths: {part} {key} = {r[key]}")
+        for key in shares[part]:
+            if r[key] is not None and not 0 < r[key] <= 1.05:
+                fail(f"roofline_paths: {part} {key} = {r[key]} is not a "
+                     "share of the peak")
+    return rec
+
+
+def profile_phases(out_dir):
+    """An n = 255 run_solver inside `utils.profiling.trace`: the exported
+    trace must hold the driver's assemble, factor and solve phases."""
+    tdir = os.path.join(out_dir, "trace_n255")
+    with profiling.trace(tdir):
+        rep = ht.run_solver(SMALL_255["n"], SMALL_255["b"],
+                            SMALL_255["wave_num"], SMALL_255["const"])
+    path = os.path.join(tdir, "trace.json")
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    size = os.path.getsize(path)
+    os.remove(path)
+    names = {e.get("name") for e in events}
+    found = sorted(names & {"assemble", "factor", "solve"})
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    say("profile_phases", iterations=rep.iterations, trace_bytes=size,
+        events=len(events), device_kernel_events=kernels, phases=found)
+    if found != ["assemble", "factor", "solve"]:
+        fail(f"profile_phases: the trace holds the phases {found}")
+    if not rep.converged:
+        fail("profile_phases: the solve did not converge")
+
+
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -841,6 +1293,19 @@ def main():
                           tri=True))
     del S32, S16, S9
     torch.cuda.empty_cache()
+
+    # K2 at the recompute preconditioner's chunk: the float32 samples of one
+    # chunk of sweep rows (128 rows, 21 samples at stride 7) with its
+    # chunk-local tables, one to four right-hand sides
+    rows_c = max(4, min(128, recompute.AUTO_CHUNK_WORDS // (n * n)))
+    offs, g_lo, g_w = recompute.chunk_tables(Mg, LERP_STRIDE, 0, rows_c)
+    tables_c = (torch.from_numpy(g_lo).to(dev), torch.from_numpy(g_w).to(dev))
+    Sc = random_g(len(offs), n, gen, dev)
+    for R in (None, 2, 3, 4):
+        for mode in ("fwd", "bwd"):
+            keep(check_k2(*Sc, mode, gen, timed=True, R=R, tables=tables_c,
+                          chunk=True))
+    del Sc
 
     # every mode x type x kind of stack again at n = 33, for one, for an odd
     # number (3) and for more right-hand sides than one launch carries (5)
@@ -1063,6 +1528,52 @@ def main():
     del Au_bsr, Au_k1, f
     torch.cuda.empty_cache()
 
+    # BiCGStab: the main configuration, four sources in lockstep, the
+    # 9-point scheme at n = 511
+    rep, counts, peak = counted_solve(BICG)
+    check_bicgstab("bicgstab", BICG, rep, counts, peak, MAX_ITERS_BICG)
+    paths["bicgstab"] = counts
+    record["bicgstab"] = rep.metrics()
+    record["bicgstab_peak_bytes"] = peak
+    paths["bicgstab_multi"] = bicgstab_multi(gen, dev)
+    rep, counts, peak = counted_solve(BICG9)
+    check_bicgstab("bicgstab9", BICG9, rep, counts, peak, BICG9["maxiter"])
+    paths["bicgstab9"] = counts
+    record["bicgstab9"] = rep.metrics()
+    torch.cuda.empty_cache()
+
+    # the recompute preconditioner: one apply against the stored one and
+    # split, then the solve and the batched solve
+    k3_setup, k3_apply, chunks, split = recompute_apply_check(dev)
+    record["recompute_apply"] = split
+    torch.cuda.empty_cache()
+    (rep, k3_solve), counts, peak = counted(
+        lambda: k3_in_solve_phases(lambda: solve_with(RECOMPUTE)))
+    check_recompute(rep, counts, peak, record["solve_peak_bytes"], k3_setup,
+                    k3_solve, k3_apply, chunks)
+    paths["recompute"] = counts
+    record["recompute"] = rep.metrics()
+    record["recompute_peak_bytes"] = peak
+    torch.cuda.empty_cache()
+    cfg = RECOMPUTE_MULTI
+    kw = {k: v for k, v in cfg.items() if k != "wave_nums"}
+    (recs, k3_solve), counts, peak = counted(
+        lambda: k3_in_solve_phases(lambda: ht.run_multisolve(
+            n, FULL["b"], cfg["wave_nums"], **kw)))
+    check_recompute_multi(recs, counts, peak, k3_setup, k3_solve, k3_apply,
+                          (split["chunks_fwd"], split["chunks_bwd"]))
+    paths["recompute_multi"] = counts
+    record["recompute_multi"] = recs
+    record["recompute_multi_peak_bytes"] = peak
+    torch.cuda.empty_cache()
+
+    # checkpoints, the roofline of the parts, the profiled phases
+    paths["checkpoint"] = checkpoint_phase(args.out_dir)
+    torch.cuda.empty_cache()
+    record["roofline_paths"] = roofline_paths()
+    profile_phases(args.out_dir)
+    torch.cuda.empty_cache()
+
     # the kernel table: every kernel variant that a full-width path
     # launched (all with bf16 G and the corrected backward step), with the
     # launches counted during those paths
@@ -1092,33 +1603,38 @@ def main():
             **{k: rec[k] for k in keys}, "timed_at": shape,
             **{k: rec[k] for k in ("device_ms", "library_device_ms")
                if k in rec}})
-    launched = {(key, path): c for path, cs in paths.items()
-                for key, c in cs["sweep_variants"].items()}
-    for tri, lerp in itertools.product((False, True), (False, True)):
-        for width in range(1, k2.MAX_WIDTH + 1):
-            for mode in ("fwd", "bwd"):
-                key = variant_key(mode, width, lerp, tri)
-                by_path = {p: c for (k, p), c in launched.items() if k == key}
-                if not by_path:
-                    continue
-                R = None if width == 1 else width   # width 1: unbatched
-                v = by_name[variant_name(mode, True, lerp=lerp, R=R,
-                                         tri=tri)]
-                plan = next(p for p in v["plans"] if p["width"] == width)
-                table.append({
-                    "name": v["name"], "route": "cuda",
-                    "source": "helmholtz_tpu_torch/csrc/sweep.cu",
-                    "replaces": "helmholtz_tpu/ops/pallas/sweep.py:"
-                                + ("298" if lerp else "302"),
-                    "launches": sum(by_path.values()),
-                    "launches_by_path": by_path,
-                    **{k: v[k] for k in keys},
-                    "steps_per_launch": v["steps"], "step_ms": v["step_ms"],
-                    "blocks": plan["blocks"], "stages": plan["stages"],
-                    "shared_bytes": plan["shared_bytes"],
-                    "step_library_ms": v.get("step_library_ms"),
-                    **({"bound_no_reuse_ms": v["bound_no_reuse_ms"]}
-                       if lerp else {})})
+    # each path's sweeps by the variant that ran them: bf16 G but on the
+    # float32 paths, and the recompute paths' chunk-sized sweeps
+    launched = {}
+    for path, cs in paths.items():
+        for key, c in cs["sweep_variants"].items():
+            parts = key.split(",")
+            mode, width = parts[0], int(parts[1][1:])
+            lerp, tri = "lerp" in parts, "tri" in parts
+            name = variant_name(mode, path not in F32_PATHS, lerp=lerp,
+                                R=None if width == 1 else width, tri=tri,
+                                chunk=path in CHUNK_PATHS)
+            launched.setdefault((name, width, lerp), {})[path] = c
+    for (name, width, lerp), by_path in launched.items():
+        if name not in by_name:
+            fail(f"{name} ran on {sorted(by_path)} but was not held against "
+                 "its plain version")
+        v = by_name[name]
+        plan = next(p for p in v["plans"] if p["width"] == width)
+        table.append({
+            "name": v["name"], "route": "cuda",
+            "source": "helmholtz_tpu_torch/csrc/sweep.cu",
+            "replaces": "helmholtz_tpu/ops/pallas/sweep.py:"
+                        + ("298" if lerp else "302"),
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            **{k: v[k] for k in keys},
+            "steps_per_launch": v["steps"], "step_ms": v["step_ms"],
+            "blocks": plan["blocks"], "stages": plan["stages"],
+            "shared_bytes": plan["shared_bytes"],
+            "step_library_ms": v.get("step_library_ms"),
+            **({"bound_no_reuse_ms": v["bound_no_reuse_ms"]}
+               if lerp else {})})
     names = {row["name"]: row for row in table}
     for path, wanted in (
             ("solve", ["stencil_matvec", "sweep_fwd[bf16]",
@@ -1135,7 +1651,19 @@ def main():
             ("multisolve9", ["sweep_fwd[bf16,lerp,tri,R4]",
                              "sweep_bwd[bf16,lerp,tri,R4]"]),
             ("exact", ["stencil_matvec"]),
-            ("exact_residual", ["stencil_matvec", "bsr_matmat"])):
+            ("exact_residual", ["stencil_matvec", "bsr_matmat"]),
+            ("bicgstab", ["stencil_matvec", "sweep_fwd[bf16]",
+                          "sweep_bwd[bf16]"]),
+            ("bicgstab_multi", ["stencil_matvec", "sweep_fwd[bf16,R4]",
+                                "sweep_bwd[bf16,R4]"]),
+            ("bicgstab9", ["sweep_fwd[bf16,tri]", "sweep_bwd[bf16,tri]"]),
+            ("recompute", ["stencil_matvec", "sweep_fwd[f32,lerp,chunk]",
+                           "sweep_bwd[f32,lerp,chunk]"]),
+            ("recompute_multi", ["stencil_matvec",
+                                 "sweep_fwd[f32,lerp,chunk,R4]",
+                                 "sweep_bwd[f32,lerp,chunk,R4]"]),
+            ("checkpoint", ["stencil_matvec", "sweep_fwd[f32]",
+                            "sweep_bwd[f32]"])):
         for name in wanted + ([] if path == "exact_residual"
                               else ["gj_inverse"]):
             if names.get(name, {}).get("launches_by_path", {}) \

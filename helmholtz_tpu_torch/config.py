@@ -79,3 +79,17 @@ class PrecondConfig:
     #: (bounds peak memory: a few chunk * n^2 complex words of workspace);
     #: the value of precond.sweeping.DEFAULT_SETUP_CHUNK.
     setup_chunk: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class PrecisionConfig:
+    """Dtype policy: the working complex type.  The port computes in
+    complex64 on the card by default and in complex128 on the CPU for the
+    oracle runs (`driver.default_complex_dtype`)."""
+
+    complex_dtype: Literal["complex64", "complex128"] = "complex64"
+
+    @property
+    def real_dtype(self) -> str:
+        return {"complex64": "float32",
+                "complex128": "float64"}[self.complex_dtype]

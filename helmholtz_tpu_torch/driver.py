@@ -10,7 +10,10 @@ through the Gauss-Jordan kernel at the base of the blocked inverse
 the wrappers run their plain PyTorch versions and the inverses are
 `torch.linalg.inv`.  The 9-point operator product (`stencil="9pt"`) is
 plain tensor code on either device, as the JAX package leaves it to its
-compiler.
+compiler.  `precond="recompute"` keeps no factor stack: every apply
+re-factors the subgrids chunk by chunk (the Gauss-Jordan kernel) and sweeps
+each chunk (the sweep kernel).  The stages carry `utils.profiling.phase`
+ranges ("assemble", "factor", "solve") for a `torch.profiler` trace.
 """
 from __future__ import annotations
 
@@ -30,6 +33,8 @@ from .fd import stencil as fd_stencil
 from .ops import spmv as plain_spmv
 from .ops.kernels.spmv_stencil import stencil_matvec_flat
 from .precond.exact import factor_exact
+from .precond.recompute import (RecomputeSweepingPreconditioner,
+                                setup_recompute)
 from .precond.sweeping import (DEFAULT_SETUP_CHUNK,
                                preconditioner_from_samples,
                                setup_preconditioner)
@@ -37,8 +42,10 @@ from .precond.sweeping9 import (preconditioner_from_samples9,
                                 setup_preconditioner9,
                                 setup_preconditioner9_assembling)
 from .solve.batched import solve_multi_rhs
+from .solve.bicgstab import bicgstab
 from .solve.gmres import KrylovResult, gmres
 from .solve.ir import ir_gmres, ir_gmres_batched
+from .utils.profiling import phase
 
 
 def default_complex_dtype(device="cuda") -> torch.dtype:
@@ -263,6 +270,19 @@ def _factor_stage(A, hm, *, b, hf_full_coupling, d2_replace, setup_chunk,
                                 g_compress=g_compress, device=device)
 
 
+def _factor_recompute_stage(A, c_full, wave_num, const, alpha, *, n, b,
+                            fidelity, hf_full_coupling, d2_replace,
+                            factor_stride=1):
+    """Factor-free setup (precond='recompute'): only H_F is factored; the
+    G stack is re-derived chunk by chunk inside every apply
+    (`precond.recompute`), which removes the O(M n^2) factor memory."""
+    return setup_recompute(n, b, wave_num, const, alpha, c_full, A=A,
+                           fidelity=fidelity,
+                           hf_full_coupling=hf_full_coupling,
+                           d2_replace=d2_replace, chunk=None,
+                           factor_stride=factor_stride)
+
+
 def _matvec_of(A):
     """The operator product on one flat vector: the stencil kernel's
     wrapper for a Stencil5, plain tensor code for a Stencil9."""
@@ -277,15 +297,16 @@ def _solve_stage(A, P, f: torch.Tensor, rtol, *, restart, maxiter,
                  inner_rtol=1e-2, device) -> KrylovResult:
     if precision not in ("f32", "ir-df32"):
         raise ValueError(f"unknown precision {precision!r}")
-    if method == "bicgstab":
-        raise NotImplementedError(
-            "method='bicgstab' belongs to the solver-extras slice of the "
-            "port (queue 1 item 13), which is not ported yet")
-    if method != "gmres":
+    if method not in ("gmres", "bicgstab"):
         raise ValueError(f"unknown method {method!r}")
+    if method == "bicgstab" and precision == "ir-df32":
+        raise ValueError("ir-df32 precision requires method='gmres'")
 
     mv = _matvec_of(A)
     M = _refined(P, mv, precond_refine) if use_precond else None
+    if method == "bicgstab":
+        return bicgstab(mv, f.reshape(-1), M=M, rtol=rtol, maxiter=maxiter,
+                        device=device)
     if precision == "ir-df32":
         # complex128 solution carry + complex128 residual: the path that
         # actually reaches rtol 1e-6 with a complex64 operator and M
@@ -368,6 +389,7 @@ def run_solver(n: int, b: int, wave_num: float, const: float,
                g_compress: bool = False,
                dedup_hm: Optional[bool] = None,
                complex_dtype=None,
+               plot_solution: bool = False,
                device="cuda") -> SolveReport:
     """End-to-end preconditioned solve on `device`.
 
@@ -379,6 +401,15 @@ def run_solver(n: int, b: int, wave_num: float, const: float,
     (`precond.exact`): GMRES then converges in one or two iterations, and
     the setup is L layer inverses and an (L, n, n) stack, the validation
     oracle rather than a production setting.
+
+    `precond="recompute"` (5-point) factors only H_F and re-derives the
+    corner inverses chunk by chunk inside every apply
+    (`precond.recompute`): O(n^2) memory at rest, about twice the setup's
+    factorization work per apply.
+
+    `method="bicgstab"` solves with BiCGStab (`solve.bicgstab`) in place of
+    GMRES, on either stencil; `plot_solution=True` draws Re(u) with
+    `viz.plot_solution` (needs matplotlib).
 
     `stencil="9pt"` solves the compact 9-point discretization
     (`fd.stencil.build_a_stencil9`, blend `stencil_gamma`) with its own
@@ -392,11 +423,7 @@ def run_solver(n: int, b: int, wave_num: float, const: float,
     dev = resolve_device(device)
     if stencil not in ("5pt", "9pt"):
         raise ValueError(f"unknown stencil {stencil!r}")
-    if precond == "recompute":
-        raise NotImplementedError(
-            "precond='recompute' belongs to a later slice of the port "
-            "(queue 1 item 15), which is not ported yet")
-    if precond not in ("moving_pml", "exact", "none"):
+    if precond not in ("moving_pml", "recompute", "exact", "none"):
         raise ValueError(f"unknown precond {precond!r}")
     _set_full_float32()
     cdtype = complex_dtype or default_complex_dtype(dev)
@@ -412,7 +439,7 @@ def run_solver(n: int, b: int, wave_num: float, const: float,
         if bad:
             raise ValueError(f"stencil='9pt' does not support {bad} "
                              "(5-point-path features)")
-        if precond == "exact":
+        if precond in ("exact", "recompute"):
             raise ValueError(f"stencil='9pt' supports precond='moving_pml' "
                              f"or 'none', got {precond!r}")
         if precond == "moving_pml":
@@ -426,7 +453,7 @@ def run_solver(n: int, b: int, wave_num: float, const: float,
             setup_chunk=setup_chunk, factor_stride=factor_stride,
             gamma=stencil_gamma, cdtype=cdtype, g_compress=g_compress,
             precision=precision, precond_refine=precond_refine,
-            inner_rtol=inner_rtol, device=dev)
+            inner_rtol=inner_rtol, plot_solution=plot_solution, device=dev)
     if dedup_hm is None:
         dedup_hm = (problem in fd_problems.ROW_INVARIANT_VELOCITY
                     and fidelity == "corrected")
@@ -440,32 +467,44 @@ def run_solver(n: int, b: int, wave_num: float, const: float,
     use_precond = precond != "none"
     P = None
     if precond == "moving_pml":
-        A, hm, f_grid = _assemble_stage(
-            wave_num, const, alpha, n=n, b=b, problem=problem,
-            fidelity=fidelity, cdtype=cdtype, dedup_hm=dedup_hm, device=dev)
-        P = _factor_stage(A, hm, b=b, hf_full_coupling=hf_full_coupling,
-                          d2_replace=d2_replace, setup_chunk=setup_chunk,
-                          g_dtype=g_dtype, factor_stride=factor_stride,
-                          g_compress=g_compress, device=dev)
+        with phase("assemble"):
+            A, hm, f_grid = _assemble_stage(
+                wave_num, const, alpha, n=n, b=b, problem=problem,
+                fidelity=fidelity, cdtype=cdtype, dedup_hm=dedup_hm,
+                device=dev)
+        with phase("factor"):
+            P = _factor_stage(A, hm, b=b, hf_full_coupling=hf_full_coupling,
+                              d2_replace=d2_replace, setup_chunk=setup_chunk,
+                              g_dtype=g_dtype, factor_stride=factor_stride,
+                              g_compress=g_compress, device=dev)
         del hm
     else:
-        A, _, f_grid = _assemble_a_stage(
-            wave_num, const, alpha, n=n, b=b, problem=problem,
-            fidelity=fidelity, cdtype=cdtype, device=dev)
-        f_grid = f_grid.to(cdtype)
-        if precond == "exact":
-            P = factor_exact(A)
+        with phase("assemble"):
+            A, c_full, f_grid = _assemble_a_stage(
+                wave_num, const, alpha, n=n, b=b, problem=problem,
+                fidelity=fidelity, cdtype=cdtype, device=dev)
+            f_grid = f_grid.to(cdtype)
+        with phase("factor"):
+            if precond == "exact":
+                P = factor_exact(A)
+            elif precond == "recompute":
+                P = _factor_recompute_stage(
+                    A, c_full, wave_num, const, alpha, n=n, b=b,
+                    fidelity=fidelity, hf_full_coupling=hf_full_coupling,
+                    d2_replace=d2_replace, factor_stride=factor_stride)
     _sync(dev)
     t1 = time.perf_counter()
 
-    res = _solve_stage(A, P, f_grid, rtol, restart=restart, maxiter=maxiter,
-                       use_precond=use_precond, method=method,
-                       precond_refine=precond_refine, precision=precision,
-                       inner_rtol=inner_rtol, device=dev)
+    with phase("solve"):
+        res = _solve_stage(A, P, f_grid, rtol, restart=restart,
+                           maxiter=maxiter, use_precond=use_precond,
+                           method=method, precond_refine=precond_refine,
+                           precision=precision, inner_rtol=inner_rtol,
+                           device=dev)
     _sync(dev)
     t2 = time.perf_counter()
 
-    return _solve_report(
+    report = _solve_report(
         A, f_grid, res, n, init_time=t1 - t0, solve_time=t2 - t1,
         config=dict(n=n, b=b, wave_num=wave_num, const=const, alpha=alpha,
                     problem=problem, rtol=rtol, restart=restart,
@@ -475,6 +514,10 @@ def run_solver(n: int, b: int, wave_num: float, const: float,
                     g_compress=g_compress, dedup_hm=dedup_hm,
                     dtype=str(cdtype).replace("torch.", ""),
                     device=str(dev)))
+    if plot_solution:
+        from . import viz
+        viz.plot_solution(report)
+    return report
 
 
 def _solve_report(A, f_grid, res: KrylovResult, n, *, init_time, solve_time,
@@ -496,29 +539,34 @@ def _solve_report(A, f_grid, res: KrylovResult, n, *, init_time, solve_time,
 def _run_solver9(n, b, wave_num, const, alpha, problem, *, rtol, restart,
                  maxiter, method, precond, g_dtype, fidelity, d2_replace,
                  setup_chunk, factor_stride, gamma, cdtype, g_compress,
-                 precision, precond_refine, inner_rtol,
+                 precision, precond_refine, inner_rtol, plot_solution=False,
                  device) -> SolveReport:
     """`run_solver` for stencil='9pt': the 9-point discretization solved end
     to end with its own moving-PML sweeping preconditioner."""
     _sync(device)
     t0 = time.perf_counter()
     use_precond = precond != "none"
-    A9, f9, P = _setup9_stage(
-        wave_num, const, alpha, gamma, n=n, b=b, problem=problem,
-        fidelity=fidelity, cdtype=cdtype, device=device,
-        factor_stride=factor_stride, g_dtype=g_dtype, d2_replace=d2_replace,
-        setup_chunk=setup_chunk, g_compress=g_compress,
-        use_precond=use_precond)
+    # the sampled setup assembles the subgrids inside its factor loop, so
+    # one range covers both stages
+    with phase("assemble"), phase("factor"):
+        A9, f9, P = _setup9_stage(
+            wave_num, const, alpha, gamma, n=n, b=b, problem=problem,
+            fidelity=fidelity, cdtype=cdtype, device=device,
+            factor_stride=factor_stride, g_dtype=g_dtype,
+            d2_replace=d2_replace, setup_chunk=setup_chunk,
+            g_compress=g_compress, use_precond=use_precond)
     _sync(device)
     t1 = time.perf_counter()
-    res = _solve_stage(A9, P, f9, rtol, restart=restart, maxiter=maxiter,
-                       use_precond=use_precond, method=method,
-                       precond_refine=precond_refine, precision=precision,
-                       inner_rtol=inner_rtol, device=device)
+    with phase("solve"):
+        res = _solve_stage(A9, P, f9, rtol, restart=restart,
+                           maxiter=maxiter, use_precond=use_precond,
+                           method=method, precond_refine=precond_refine,
+                           precision=precision, inner_rtol=inner_rtol,
+                           device=device)
     _sync(device)
     t2 = time.perf_counter()
     sampled = factor_stride > 1 and (n - b) > factor_stride
-    return _solve_report(
+    report = _solve_report(
         A9, f9, res, n, init_time=t1 - t0, solve_time=t2 - t1,
         config=dict(n=n, b=b, wave_num=wave_num, const=const, alpha=alpha,
                     problem=problem, rtol=rtol, restart=restart,
@@ -529,6 +577,10 @@ def _run_solver9(n, b, wave_num, const, alpha, problem, *, rtol, restart,
                     precision=precision, precond_refine=precond_refine,
                     dtype=str(cdtype).replace("torch.", ""),
                     device=str(device)))
+    if plot_solution:
+        from . import viz
+        viz.plot_solution(report)
+    return report
 
 
 def _host_stencil_matvec(A_np, u):
@@ -672,7 +724,7 @@ def _multisolve_record(key_cfg, A, P, res, F, *, wave_num, const, n,
     true_res = [float(np.linalg.norm(
         (_host_matvec_any(A_np, X[k]) - F_np[k]).ravel())
         / np.linalg.norm(F_np[k].ravel())) for k in range(n_sources)]
-    return {
+    rec = {
         **key_cfg, "wave_num": float(wave_num), "const": float(const),
         "iterations": np.asarray(res.iterations).tolist(),
         "converged": np.asarray(res.converged).tolist(),
@@ -680,8 +732,11 @@ def _multisolve_record(key_cfg, A, P, res, F, *, wave_num, const, n,
         "init_time_s": t1 - t0, "solve_time_s": t2 - t1,
         "compiled": False,
         "dtype": str(cdtype).replace("torch.", ""),
-        **_g_accounting(P, n, P.b, g_compress), "g_dtype": g_dtype,
     }
+    if not isinstance(P, RecomputeSweepingPreconditioner):
+        # a recompute state has no G stack to account for
+        rec.update(_g_accounting(P, n, P.b, g_compress), g_dtype=g_dtype)
+    return rec
 
 
 @torch.no_grad()
@@ -731,8 +786,10 @@ def run_multisolve(n: int, b: int, wave_nums, consts=None,
     package's keys; `compiled` is always False here (nothing is compiled
     per call).  `stencil="9pt"` runs the same sweep on the 9-point
     discretization (right-hand sides filtered by `fd.stencil.mass_filter9`,
-    PML width checked as in `run_solver`).  `mesh_devices` and
-    `precond="recompute"` belong to later slices of the port and raise
+    PML width checked as in `run_solver`).  `precond="recompute"` (5-point,
+    no frequency amortization) keeps no factor stack; the batch shares each
+    chunk's re-factorization (`precond.recompute.apply_recompute_multi`).
+    `mesh_devices` belongs to a later slice of the port and raises
     NotImplementedError.
     """
     dev = resolve_device(device)
@@ -743,11 +800,11 @@ def run_multisolve(n: int, b: int, wave_nums, consts=None,
     if stencil not in ("5pt", "9pt"):
         raise ValueError(f"unknown stencil {stencil!r}")
     nine = stencil == "9pt"
-    if precond == "recompute":
-        raise NotImplementedError(
-            "precond='recompute' belongs to the recompute slice of the port "
-            "(queue 1 item 15), which is not ported yet")
-    if precond != "moving_pml":
+    if nine and precond != "moving_pml":
+        raise ValueError(f"multisolve stencil='9pt' supports "
+                         f"precond='moving_pml', got {precond!r} "
+                         "(recompute is a 5-point-path feature)")
+    if precond not in ("moving_pml", "recompute"):
         raise ValueError(f"unknown multisolve precond {precond!r}")
     if nine:
         _check_pml_width9(n, b)
@@ -789,12 +846,26 @@ def run_multisolve(n: int, b: int, wave_nums, consts=None,
     def factor_at(wn, C, compress):
         """(A, P) of one frequency, assembled and factored from scratch."""
         if nine:
-            A, _, P = _setup9_stage(wn, C, alpha, stencil_gamma,
-                                    g_compress=compress, **stage, **factor)
+            with phase("assemble"), phase("factor"):
+                A, _, P = _setup9_stage(wn, C, alpha, stencil_gamma,
+                                        g_compress=compress, **stage,
+                                        **factor)
             return A, P
-        A, hm, _ = _assemble_stage(wn, C, alpha, **stage)
-        return A, _factor_stage(A, hm, b=b, hf_full_coupling=True,
-                                g_compress=compress, device=dev, **factor)
+        if precond == "recompute":
+            # factor-free: the batch shares each chunk's re-factorization
+            with phase("assemble"):
+                A, c_full, _ = _assemble_a_stage(wn, C, alpha, **stage)
+            with phase("factor"):
+                return A, _factor_recompute_stage(
+                    A, c_full, wn, C, alpha, n=n, b=b, fidelity=fidelity,
+                    hf_full_coupling=True, d2_replace=True,
+                    factor_stride=factor_stride)
+        with phase("assemble"):
+            A, hm, _ = _assemble_stage(wn, C, alpha, **stage)
+        with phase("factor"):
+            return A, _factor_stage(A, hm, b=b, hf_full_coupling=True,
+                                    g_compress=compress, device=dev,
+                                    **factor)
 
     def assemble_at(wn, C):
         """The operator alone, for a frequency between two anchors."""
@@ -803,6 +874,9 @@ def run_multisolve(n: int, b: int, wave_nums, consts=None,
         return _assemble_a_stage(wn, C, alpha, **stage)[0]
 
     if freq_anchor_every > 1:
+        if precond != "moving_pml":
+            raise ValueError("freq_anchor_every amortizes STORED factor "
+                             "samples (precond='moving_pml')")
         if not g_compress or factor_stride <= 1:
             raise ValueError(
                 "freq_anchor_every > 1 requires g_compress=True and "
@@ -832,7 +906,8 @@ def run_multisolve(n: int, b: int, wave_nums, consts=None,
         A, P = factor_at(wn, C, g_compress)
         _sync(dev)
         t1 = time.perf_counter()
-        res = _msolve_stage(A, P, F, rtol, **solve)
+        with phase("solve"):
+            res = _msolve_stage(A, P, F, rtol, **solve)
         _sync(dev)
         t2 = time.perf_counter()
         records.append(_multisolve_record(
@@ -863,7 +938,8 @@ def _run_multisolve_amortized(wave_nums, const, sources_at, factor_at,
     def solve_and_record(idx, A, P, t0, t1, mode):
         wn = wave_nums[idx]
         F = sources_at(wn, const)
-        res = _msolve_stage(A, P, F, rtol, **solve)
+        with phase("solve"):
+            res = _msolve_stage(A, P, F, rtol, **solve)
         _sync(dev)
         t2 = time.perf_counter()
         records[idx] = {**_multisolve_record(
@@ -899,3 +975,27 @@ def _run_multisolve_amortized(wave_nums, const, sources_at, factor_at,
             del P_p                   # span done, drop the anchor
         prev = (a, wn_a, P_a)
     return [records[i] for i in range(K)]
+
+
+@torch.no_grad()
+def build_preconditioner(n: int, b: int, wave_num: float, const: float,
+                         alpha: float = 2.0, problem: str = "c1_f1", *,
+                         fidelity: str = "corrected",
+                         hf_full_coupling: bool = True,
+                         d2_replace: bool = True,
+                         setup_chunk: int = DEFAULT_SETUP_CHUNK,
+                         complex_dtype=None,
+                         device="cuda"):
+    """Assemble and factor only (stride 1, G at the working precision):
+    returns (P, A, f_grid) on `device`, for checkpointing
+    (`utils.checkpoint`) or reuse across many solves."""
+    dev = resolve_device(device)
+    _set_full_float32()
+    cdtype = complex_dtype or default_complex_dtype(dev)
+    A, hm, f_grid = _assemble_stage(
+        wave_num, const, alpha, n=n, b=b, problem=problem, fidelity=fidelity,
+        cdtype=cdtype, device=dev)
+    P = _factor_stage(A, hm, b=b, hf_full_coupling=hf_full_coupling,
+                      d2_replace=d2_replace, setup_chunk=setup_chunk,
+                      device=dev)
+    return P, A, f_grid

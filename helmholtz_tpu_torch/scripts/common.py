@@ -50,38 +50,6 @@ def time_ms(fn, reps, flush=None):
     return total / reps
 
 
-def device_ms(fn, reps, flush=None):
-    """Median device time of fn() in ms, with the host's cost of the call
-    out of it: the runs are queued behind a sleep kernel long enough for
-    the host to queue them all, each between its own pair of CUDA events
-    (after `flush` is rewritten, where given, so the L2 cache starts cold),
-    so each pair times only the device's work of one call.  Raises if the
-    host could not queue them in the time of a 50 ms sleep."""
-    fn()
-    torch.cuda.synchronize()
-    cycles = 2_000_000                  # about 1 ms at the H100's clocks
-    while True:
-        pairs = [(torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-        slept = torch.cuda.Event()
-        torch.cuda._sleep(cycles)
-        slept.record()
-        for start, end in pairs:
-            if flush is not None:
-                flush.zero_()
-            start.record()
-            fn()
-            end.record()
-        queued_in_time = not slept.query()
-        torch.cuda.synchronize()
-        if queued_in_time:
-            return statistics.median(s.elapsed_time(e) for s, e in pairs)
-        if cycles >= 100_000_000:
-            raise RuntimeError("the host did not queue the runs within the "
-                               "sleep kernel's time")
-        cycles *= 4
-
-
 def host_ms(fn, reps):
     """Median host time of one call of fn() in ms, each call started on an
     idle device: what the call costs the host before it returns."""
@@ -98,12 +66,6 @@ def host_ms(fn, reps):
 
 
 # -- bounds ---------------------------------------------------------------------
-
-#: published peaks of one H100 SXM at its full power limit: device memory
-#: rate and the float32 rate outside the tensor cores
-PUBLISHED_BYTES_PER_S = 3.35e12
-PUBLISHED_F32_FLOPS = 67e12
-
 
 def bound_ms(bytes_moved, flops, bytes_per_s, flops_per_s):
     """(ms, "bytes" or "operations"): the larger of the bytes over the

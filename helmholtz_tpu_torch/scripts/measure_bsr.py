@@ -8,9 +8,10 @@ Imports `helmholtz_tpu_torch` from DIR (default: the checkout that holds
 this script), so that one script times two trees of the package, such as a
 commit and its parent unpacked with `git archive`: run it once a tree, in
 turns (parent, change, change, parent), in one call on one card.  The
-inputs, timers and bounds are this script's own (`common.py` beside it,
-loaded by path), so both trees see the same data; K4 is reached through
-what every slice of the port has, `ops.kernels.bsr_spmm.bsr_matmat`.
+inputs, timers and bounds are this checkout's (`common.py` beside it and
+`bench/timing.py`, loaded by path), so both trees see the same data; K4 is
+reached through what every slice of the port has,
+`ops.kernels.bsr_spmm.bsr_matmat`.
 
 The shapes: the exact path's n = 511 operator as BSR (1,531 blocks of 511
 x 511) at K = 1, 4 and 16, and random 16 x 12 block matrices (about 40%
@@ -19,7 +20,7 @@ K = 16, 5 and 1.  For each it holds K4 against `plain_bsr_matmat` within
 K4_TOL, checks that two calls give equal bits, and prints one JSON line:
 the call's time (`call_ms`: CUDA events around the Python call after an
 L2 flush, as `chip_smoke.py` times it), the device's work alone
-(`device_ms`, `common.device_ms`), the host's cost of one call
+(`device_ms`, `bench/timing.py`), the host's cost of one call
 (`host_ms`), the same three for the library call (torch sparse CSR of the
 stored entries @ X), and the bound: against the card's published peaks
 (`bound_ms`), and against the peaks this run measures where DIR's package
@@ -44,6 +45,14 @@ def say(what, **fields):
     print(json.dumps({"measure": what, **fields}), flush=True)
 
 
+def _load(name, path):
+    """The module at `path`, loaded by path whatever tree is on sys.path."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -63,10 +72,9 @@ def main():
     from helmholtz_tpu_torch.ops.kernels import bsr_spmm as k4
     from helmholtz_tpu_torch.ops.sparse_algebra import stencil_to_bsr
 
-    spec = importlib.util.spec_from_file_location(
-        "measure_bsr_common", os.path.join(HERE, "common.py"))
-    common = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(common)
+    common = _load("measure_bsr_common", os.path.join(HERE, "common.py"))
+    timing = _load("measure_bsr_timing",
+                   os.path.join(os.path.dirname(HERE), "bench", "timing.py"))
 
     label = args.label or root
     say("card", label=label, nvidia_smi=common.card(),
@@ -87,8 +95,8 @@ def main():
                  "streaming_gb_per_s": roofline.measure_streaming_bw(),
                  "f32_matmul_tflop_per_s": roofline.measure_matmul_tflops()}
     say("peaks", label=label, measured=peaks,
-        published={"gb_per_s": common.PUBLISHED_BYTES_PER_S / 1e9,
-                   "f32_tflop_per_s": common.PUBLISHED_F32_FLOPS / 1e12})
+        published={"gb_per_s": timing.PUBLISHED_BYTES_PER_S / 1e9,
+                   "f32_tflop_per_s": timing.PUBLISHED_F32_FLOPS / 1e12})
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -107,18 +115,18 @@ def main():
         _, lib_rel = common.rel_err(lib(), ref)
         nbytes, flops = common.bsr_work(A, K)
         bound, by = common.bound_ms(nbytes, flops,
-                                    common.PUBLISHED_BYTES_PER_S,
-                                    common.PUBLISHED_F32_FLOPS)
+                                    timing.PUBLISHED_BYTES_PER_S,
+                                    timing.PUBLISHED_F32_FLOPS)
         rec = dict(
             label=label, name=name, nblocks=A.data.shape[0],
             blocksize=list(A.blocksize), K=K, max_abs_err=err, rel_err=rel,
             tol=K4_TOL, bits_equal=bits_equal,
             call_ms=common.time_ms(call, reps, flush),
-            device_ms=common.device_ms(call, reps, flush),
+            device_ms=timing.device_ms(call, reps, flush),
             host_ms=common.host_ms(call, 2 * reps),
             library_rel_err=lib_rel,
             library_call_ms=common.time_ms(lib, reps, flush),
-            library_device_ms=common.device_ms(lib, reps, flush),
+            library_device_ms=timing.device_ms(lib, reps, flush),
             library_host_ms=common.host_ms(lib, 2 * reps),
             bound_ms=bound, bound_by=by, bound_measured_ms=None)
         if peaks:

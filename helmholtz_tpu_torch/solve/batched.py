@@ -10,7 +10,8 @@ the inner loop, its own least-squares problem and back-substitution, its own
 recomputed residual and stagnation guard.  A member's iterations, flags,
 history and x are those of its single solve and do not depend on who else is
 in the batch (up to the rounding of the batched products).  The loop is
-`solve.gmres.gmres_batched`.
+`solve.gmres.gmres_batched`; `method="bicgstab"` runs the lockstep
+`solve.bicgstab.bicgstab_batched` the same way.
 
   * multi-RHS: one operator/preconditioner, a batch of forcings (for example
     many sources at one frequency);
@@ -24,7 +25,17 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from .bicgstab import bicgstab, bicgstab_batched
 from .gmres import KrylovResult, gmres, gmres_batched
+
+_METHODS = {"gmres": (gmres, gmres_batched),
+            "bicgstab": (bicgstab, bicgstab_batched)}
+
+
+def _method(method: str):
+    if method not in _METHODS:
+        raise ValueError(f"unknown method {method!r}")
+    return _METHODS[method]
 
 
 def stack_results(results: Sequence[KrylovResult]) -> KrylovResult:
@@ -49,18 +60,16 @@ def solve_multi_rhs(matvec: Callable, B: torch.Tensor, *,
     `matvec` and `M` map (k, N) batches to (k, N) batches.  A
     SweepingPreconditioner passed as `M` is applied through its
     `apply_multi`, so the whole batch rides one stream of its G stack per
-    application."""
+    application; a RecomputeSweepingPreconditioner likewise, so the batch
+    shares each chunk's re-factorization."""
+    from ..precond.recompute import RecomputeSweepingPreconditioner
     from ..precond.sweeping import SweepingPreconditioner
 
-    if method == "bicgstab":
-        raise NotImplementedError(
-            "method='bicgstab' belongs to the solver-extras slice of the "
-            "port (queue 1 item 13), which is not ported yet")
-    if method != "gmres":
-        raise ValueError(f"unknown method {method!r}")
-    if isinstance(M, SweepingPreconditioner):
+    _, batched = _method(method)
+    if isinstance(M, (SweepingPreconditioner,
+                      RecomputeSweepingPreconditioner)):
         M = M.apply_multi
-    return gmres_batched(matvec, B, M=M, **kw)
+    return batched(matvec, B, M=M, **kw)
 
 
 def solve_multi_problem(matvecs_data: Sequence, apply_matvec: Callable,
@@ -76,17 +85,12 @@ def solve_multi_problem(matvecs_data: Sequence, apply_matvec: Callable,
     per-problem operators on flat (N,) vectors.  The problems share neither
     operator nor factor stack, so they are solved one after another and the
     results stacked."""
-    if method == "bicgstab":
-        raise NotImplementedError(
-            "method='bicgstab' belongs to the solver-extras slice of the "
-            "port (queue 1 item 13), which is not ported yet")
-    if method != "gmres":
-        raise ValueError(f"unknown method {method!r}")
+    single, _ = _method(method)
     results = []
     for i, f_i in enumerate(B):
         mv = lambda v, d=matvecs_data[i]: apply_matvec(d, v)
         Mi = None
         if apply_precond is not None:
             Mi = lambda v, d=precond_data[i]: apply_precond(d, v)
-        results.append(gmres(mv, f_i, M=Mi, **kw))
+        results.append(single(mv, f_i, M=Mi, **kw))
     return stack_results(results)

@@ -328,7 +328,7 @@ def test_batched_gmres_equals_stacked_single_solves(problem, factored, kw):
 
 def test_batched_gmres_edge_cases():
     """A zero member, a member that is solved in one step, caps per member,
-    a warm start, and the options of other slices."""
+    a warm start, and BiCGStab through both batched entry points."""
     rng = np.random.default_rng(5)
     d = torch.from_numpy(rng.uniform(1.0, 2.0, 12) + 0j)
     mv = lambda V: d * V
@@ -348,11 +348,14 @@ def test_batched_gmres_edge_cases():
     assert capped.converged.tolist() == [False, True, False]
     warm = tbatched.gmres_batched(mv, Bm, x0=res.x, rtol=1e-8, device="cpu")
     assert warm.iterations.tolist() == [0, 0, 0] and warm.converged.all()
-    for fn in (lambda: tbatched.solve_multi_rhs(mv, Bm, method="bicgstab"),
-               lambda: tbatched.solve_multi_problem([d], None, Bm[:1],
-                                                    method="bicgstab")):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            fn()
+    for res in (tbatched.solve_multi_rhs(mv, Bm, method="bicgstab",
+                                         rtol=1e-10, device="cpu"),
+                tbatched.solve_multi_problem([d], lambda d_, v: d_ * v,
+                                             Bm[:1], method="bicgstab",
+                                             rtol=1e-10, device="cpu")):
+        assert res.converged.all()
+        np.testing.assert_allclose(to_np(res.x), to_np(Bm / d)[:len(res.x)],
+                                   rtol=1e-8)
     with pytest.raises(ValueError, match="method"):
         tbatched.solve_multi_rhs(mv, Bm, method="cg")
 
@@ -538,7 +541,9 @@ def test_omega_lerp_pair_is_float32_like_the_reference():
 
 def test_run_multisolve_guards():
     """The amortized path refuses what it cannot honor, with the
-    reference's key words; other slices' options raise by name."""
+    reference's key words; the distributed option raises by name, and the
+    recompute preconditioner refuses the 9-point stencil and amortization
+    as the JAX package does."""
     run = lambda *a, **k: tdriver.run_multisolve(*a, device="cpu", **k)
     with pytest.raises(ValueError, match="g_compress"):
         run(31, 5, [2.0, 2.1], consts=[20.0], freq_anchor_every=2,
@@ -552,10 +557,14 @@ def test_run_multisolve_guards():
     with pytest.raises(ValueError, match="2 consts for 3"):
         run(31, 5, [2.0, 2.1, 2.2], consts=[20.0, 21.0])
     for kw, name in ((dict(mesh_devices=4), "distributed"),
-                     (dict(mesh_devices=4, stencil="9pt"), "item 16"),
-                     (dict(precond="recompute"), "recompute")):
+                     (dict(mesh_devices=4, stencil="9pt"), "item 16")):
         with pytest.raises(NotImplementedError, match=name):
             run(31, 5, [2.0], **kw)
+    with pytest.raises(ValueError, match="5-point-path feature"):
+        run(31, 5, [2.0], precond="recompute", stencil="9pt")
+    with pytest.raises(ValueError, match="STORED"):
+        run(31, 5, [2.0, 2.1], consts=[20.0], precond="recompute",
+            freq_anchor_every=2, factor_stride=4, g_compress=True)
     with pytest.raises(ValueError, match="stencil"):
         run(31, 5, [2.0], stencil="7pt")
     with pytest.raises(ValueError, match="precond"):

@@ -249,8 +249,9 @@ def test_run_solver_oracle_n127():
 
 def test_run_solver_options():
     """Strided bf16 setup, compressed G, the as-shipped variants,
-    refinement, no preconditioner; and the options of later slices raise by
-    name."""
+    refinement, no preconditioner, BiCGStab on both stencils and the
+    recompute preconditioner, which the 9-point path refuses as the JAX
+    package does."""
     base = tdriver.run_solver(N, B, WAVE, CONST, device="cpu")
     strided = tdriver.run_solver(N, B, WAVE, CONST, factor_stride=3,
                                  g_dtype="bf16", device="cpu")
@@ -272,11 +273,14 @@ def test_run_solver_options():
                                   device="cpu")
     assert packed.converged and packed.config["g_compress"]
     assert packed.iterations == expanded.iterations
-    for kw, name in ((dict(method="bicgstab"), "solver-extras"),
-                     (dict(method="bicgstab", stencil="9pt"), "item 13"),
-                     (dict(precond="recompute"), "item 15")):
-        with pytest.raises(NotImplementedError, match=name):
-            tdriver.run_solver(15, 4, 1.0, 20.0, device="cpu", **kw)
+    for kw in (dict(method="bicgstab"),
+               dict(method="bicgstab", stencil="9pt"),
+               dict(precond="recompute")):
+        other = tdriver.run_solver(15, 4, 1.0, 20.0, device="cpu", **kw)
+        assert other.converged and other.true_residual < 1e-3
+    with pytest.raises(ValueError, match="supports precond='moving_pml'"):
+        tdriver.run_solver(15, 4, 1.0, 20.0, device="cpu", stencil="9pt",
+                           precond="recompute")
     exact = tdriver.run_solver(15, 4, 1.0, 20.0, precond="exact",
                                device="cpu")
     assert exact.converged and exact.iterations <= 2
