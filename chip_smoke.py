@@ -59,12 +59,34 @@ the roofline of the solver's parts:
   profile_phases  an n = 255 run_solver inside utils.profiling.trace: the
                 exported trace holds the assemble, factor and solve phases;
 
+then the flagship scale, n = 2047 (b = 12, c1_f1, omega/2pi = 256, bf16 G,
+stride 8; the JAX package's CAPACITY_COMPRESSED.jsonl, MULTISOLVE_n2047.jsonl
+and NINEPOINT.jsonl records), the study and the command line:
+
+  flagship      run_solver over compressed G (256 sample panels);
+  flagship_dense  the same over the dense 34.12 GB stack (2035 panels,
+                offsets past 2^31 elements a plane);
+  flagship_multi  run_multisolve, omega/2pi = 256 and 255, four sources;
+  flagship9     the 9-point scheme at b = 147, C = 60, four sources,
+                through `cli.main(["multisolve", ...])` in this process;
+  accuracy      bench.accuracy's refine study at n = 63, 127, 255 on both
+                stencils (complex64, ir-df32);
+  cli_main      `python -m helmholtz_tpu_torch solve --n 127 ...` in a
+                subprocess (and the same arguments in this process, counted),
+                and `plan --n 2047 --stencil 9pt`;
+  plan_check    the capacity planner's peak (bench.plan) beside the peak
+                each full-width path allocated above what the script held
+                before it;
+
 Before the kernel phases it measures the card's peaks (`bench.roofline`:
 read-only and streaming memory rates, float32 matrix-product rate) and
 prints them on a line of their own; every kernel's bound is stated against
 the card's published peaks, with the bound at the measured peaks beside
-it.  K4 is also timed for its device work alone and its host cost, beside
-the library call's, and two calls on the same inputs must give equal bits;
+it.  The sweep kernel is also held against its plain version at n = 2047
+(`k2_2047`: dense G with one stage of G in shared memory, sample-compressed
+G with none), each variant's launch plan printed.  K4 is also timed for
+its device work alone and its host cost, beside the library call's, and
+two calls on the same inputs must give equal bits;
 then every kernel instance its C entry point dispatches runs once, on a
 small matrix with empty block rows and block rows cut between units
 (pointers 16-byte aligned and not), against the plain version.
@@ -84,10 +106,12 @@ table, the card's name and power limit, and the verdict.
 import argparse
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
 import os
+import subprocess
 import sys
 import time
 
@@ -95,7 +119,11 @@ import numpy as np
 import torch
 
 import helmholtz_tpu_torch as ht
+from helmholtz_tpu_torch import cli
 from helmholtz_tpu_torch import driver as ht_driver
+from helmholtz_tpu_torch.bench import plan as capacity
+from helmholtz_tpu_torch.bench.accuracy import (convergence_orders,
+                                                measure_error)
 from helmholtz_tpu_torch.fd import stencil as fd_stencil
 from helmholtz_tpu_torch.ops import dense
 from helmholtz_tpu_torch.ops import spmv as plain_spmv
@@ -196,10 +224,39 @@ RECOMPUTE_MULTI = dict(wave_nums=[128.0], consts=[100.0], n_sources=4,
 RECOMPUTE_APPLY_TOL = 1e-4   # relative 2-norm, recompute against stored f32
 # checkpoints and the profiled solve at n = 255
 SMALL_255 = dict(n=255, b=12, wave_num=32.0, const=62.0)
-# the paths whose sweeps run float32 G (the rest run bf16), and those that
-# run the recompute preconditioner's chunk-sized sweeps
-F32_PATHS = ("recompute", "recompute_multi", "checkpoint")
+# The flagship scale: n = 2047, the JAX package's headline records, every
+# one with bf16 G at stride 8 (the auto stride there) over compressed G:
+# CAPACITY_COMPRESSED.jsonl `compressed_stored_n2047` (7 iterations; the same
+# over the dense stack here), MULTISOLVE_n2047.jsonl (omega/2pi = 256 and
+# 255, four sources: [6, 7, 7, 6] both) and NINEPOINT.jsonl
+# `ninepoint_flagship_2047_compressed` (b = 147, C = 60: [5, 4, 4, 5]).
+FLAG = dict(n=2047, b=12, wave_num=256.0, const=100.0, problem="c1_f1",
+            rtol=1e-3, restart=20, maxiter=60, g_dtype="bf16",
+            g_compress=True)
+FLAG_DENSE = dict(FLAG, g_compress=False)
+FLAG_STRIDE = 8
+FLAG_MULTI = dict(wave_nums=[256.0, 255.0], consts=[100.0], n_sources=4,
+                  rtol=1e-3, g_dtype="bf16", factor_stride=FLAG_STRIDE,
+                  g_compress=True)
+FLAG9 = dict(n=2047, b=147, wave_nums=[256.0], consts=[60.0], n_sources=4)
+FLAG9_ARGV = ["multisolve", "--stencil", "9pt", "--n", "2047", "--b", "147",
+              "--freqs", "256", "--consts", "60", "--multi-rhs", "4",
+              "--g-dtype", "bf16", "--factor-stride", "8", "--g-compress"]
+MAX_ITERS_FLAG = 8            # the reference's 7 + 1
+MAX_ITERS_FLAG9 = 6           # the reference's 5 + 1
+# the accuracy study's refine sweep (the JAX package's ACCURACY.jsonl)
+ACCURACY_NS = (63, 127, 255)
+ACCURACY_WAVE_NUM = 8.0
+# the command line at ORACLE.json's n = 127 configuration (oracle: 2)
+CLI_SOLVE = ["solve", "--n", "127", "--wave-num", "16", "--const", "81"]
+MAX_ITERS_CLI = 3
+PLAN_RATIO = 1.05             # measured peak against the planner's, at most
+# the paths whose sweeps run float32 G (the rest run bf16), those that run
+# the recompute preconditioner's chunk-sized sweeps, and those at n = 2047
+F32_PATHS = ("recompute", "recompute_multi", "checkpoint", "accuracy",
+             "cli_main")
 CHUNK_PATHS = ("recompute", "recompute_multi")
+BIG_PATHS = ("flagship", "flagship_dense", "flagship_multi", "flagship9")
 K4_WIDTHS = (1, 4, 16)       # columns of X on the n = 511 operator
 
 # Tolerances, relative to the largest entry of the plain version's result;
@@ -287,11 +344,14 @@ def check_k1(A, gen, flush, timed):
 
 
 def variant_name(mode, bf16, shared=False, lerp=False, R=None, tri=False,
-                 chunk=False):
+                 chunk=False, big=False):
+    """`big`: a sweep at the flagship size n = 2047, whose launch plan
+    differs from n = 1023's (16 rows a block; one stage of dense bf16 G,
+    none of a sample pair)."""
     return (f"sweep_{mode}[{'bf16' if bf16 else 'f32'}"
             f"{',shared' if shared else ''}{',lerp' if lerp else ''}"
             f"{',tri' if tri else ''}{',chunk' if chunk else ''}"
-            f"{f',R{R}' if R else ''}]")
+            f"{f',R{R}' if R else ''}{',n2047' if big else ''}]")
 
 
 def check_k2(G_re, G_im, mode, gen, timed, rows=None, library_step=False,
@@ -320,7 +380,7 @@ def check_k2(G_re, G_im, mode, gen, timed, rows=None, library_step=False,
     plain_ms = (time.perf_counter() - t0) * 1e3
     err, rel = rel_err(got, ref)
     name = variant_name(mode, G_re.dtype == torch.bfloat16, shared, lerp, R,
-                        tri, chunk)
+                        tri, chunk, big=n == FLAG["n"])
     if not (rel <= K2_TOL and math.isfinite(rel)):
         fail(f"{name} n={n}: relative error {rel:.3e} > {K2_TOL}")
     rec = {"name": name, "n": n, "steps": S, "max_abs_err": err,
@@ -380,6 +440,54 @@ def check_k2(G_re, G_im, mode, gen, timed, rows=None, library_step=False,
             "torch.mv on a complex64 panel" if R is None else
             f"torch.mm of a complex64 panel with an (n, {R}) block")
     return rec
+
+
+def random_g_bf16(Mg, n, gen, dev, chunk=64):
+    """`random_g`'s planes stored as bfloat16, drawn chunk by chunk: the
+    float32 planes of the n = 2047 dense stack would take 68 GB."""
+    ld = k2.g_ld(n)
+    sigma = 0.25 / math.sqrt(n) / math.sqrt(2.0)
+    planes = []
+    for _ in range(2):
+        g = torch.zeros((Mg, n, ld), dtype=torch.bfloat16, device=dev)
+        for s in range(0, Mg, chunk):
+            e = min(s + chunk, Mg)
+            g[s:e, :, :n] = torch.randn((e - s, n, n), generator=gen,
+                                        device=dev) * sigma
+        planes.append(g)
+    return planes
+
+
+def check_k2_2047(gen, dev, keep):
+    """K2 at the flagship size against its plain version: dense bf16 G over
+    all 2035 sweep rows (34.12 GB: a plane passes 2^31 elements), R = 1;
+    stride-8 bf16 samples with the compressed setup's tables, diagonal
+    coupling over 2035 rows and tridiagonal over the 9-point path's 1900,
+    R = 1 to 4.  Returns the variants' names and launch plans."""
+    n = FLAG["n"]
+    M, M9 = n - FLAG["b"], n - FLAG9["b"]
+    recs = []
+    G = random_g_bf16(M, n, gen, dev)
+    for mode in ("fwd", "bwd"):
+        recs.append(check_k2(*G, mode, gen, timed=True))
+    del G
+    torch.cuda.empty_cache()
+    tables = lerp_tables(M, FLAG_STRIDE, dev)
+    tables9 = lerp_tables(M9, FLAG_STRIDE, dev)
+    S = random_g_bf16(int(tables[0].max()) + 2, n, gen, dev)
+    S9 = [g[:int(tables9[0].max()) + 2] for g in S]
+    for R in (None, 2, 3, 4):
+        for mode in ("fwd", "bwd"):
+            recs.append(check_k2(*S, mode, gen, timed=True, R=R,
+                                 tables=tables))
+            recs.append(check_k2(*S9, mode, gen, timed=True, R=R,
+                                 tables=tables9, tri=True))
+    del S, S9
+    torch.cuda.empty_cache()
+    for rec in recs:
+        keep(rec)
+    return [{"name": r["name"], "steps": r["steps"], "rel_err": r["rel_err"],
+             "ms": r["ms"], "plans": r["plans"]} for r in recs]
 
 
 # -- K3 -----------------------------------------------------------------------
@@ -602,12 +710,19 @@ def variant_key(mode, width, lerp, tri=False):
             f"{',tri' if tri else ''}")
 
 
-def counted(fn):
+#: the device memory of each named counted run: its peak and what was
+#: allocated when it started (the script's own buffers), by path
+PATH_MEMORY = {}
+
+
+def counted(fn, name=None):
     """Run fn() with every launch count set to zero just before and read
-    just after; also the peak device memory of the run."""
+    just after; also the peak device memory of the run (kept under `name`
+    in PATH_MEMORY with what was allocated before it, where given)."""
     for k in (k1, k2, k3, k4):
         k.reset_counts()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     out = fn()
     torch.cuda.synchronize()
     # the sweep wrapper counts by (mode, width, lerp, tri); its totals by
@@ -620,7 +735,10 @@ def counted(fn):
                                  in k2.launches_by_width.items()},
               "sweep_variants": {variant_key(*k): c for k, c
                                  in k2.launches_by_variant.items()}}
-    return out, counts, torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    if name:
+        PATH_MEMORY[name] = {"peak_bytes": peak, "base_bytes": base}
+    return out, counts, peak
 
 
 def k3_in_solve_phases(fn):
@@ -651,8 +769,8 @@ def solve_with(cfg):
                             if k not in ("n", "b", "wave_num", "const")})
 
 
-def counted_solve(cfg):
-    return counted(lambda: solve_with(cfg))
+def counted_solve(cfg, name=None):
+    return counted(lambda: solve_with(cfg), name)
 
 
 def batched_launches(iteration_lists, lerp, restart=20, tri=False):
@@ -685,7 +803,7 @@ def batched_launches(iteration_lists, lerp, restart=20, tri=False):
 
 
 def check_multisolve(name, cfg, recs, counts, peak, lerp, modes=None,
-                     tri=False):
+                     tri=False, max_iters=MAX_ITERS_BATCHED):
     """`tri`: a 9-point sweep, whose operator products launch no kernel and
     whose sweeps take the tridiagonal-coupling variants."""
     say(name, records=[{k: r[k] for k in (
@@ -705,9 +823,8 @@ def check_multisolve(name, cfg, recs, counts, peak, lerp, modes=None,
             fail(f"{what}: not converged: {r['converged']}")
         if not all(res < 1e-3 for res in r["true_residuals"]):
             fail(f"{what}: true residuals {r['true_residuals']}")
-        if max(r["iterations"]) > MAX_ITERS_BATCHED:
-            fail(f"{what}: iterations {r['iterations']} > "
-                 f"{MAX_ITERS_BATCHED}")
+        if max(r["iterations"]) > max_iters:
+            fail(f"{what}: iterations {r['iterations']} > {max_iters}")
         if bool(r["g_compress"]) != lerp:
             fail(f"{what}: g_compress is {r['g_compress']}")
     want_k1, want_k2 = batched_launches([r["iterations"] for r in recs], lerp,
@@ -740,8 +857,9 @@ def check_setup_launches(name, counts):
 
 
 def check_solve(name, cfg, rep, counts, peak, max_iters, exact_iters=None,
-                residual_below=1e-3, applies_per_call=1):
-    """`applies_per_call`: 2 when the preconditioner is refined once."""
+                residual_below=1e-3, applies_per_call=1, lerp=False):
+    """`applies_per_call`: 2 when the preconditioner is refined once;
+    `lerp`: the sweeps run over sample-compressed G."""
     tri = cfg.get("stencil") == "9pt"
     exact = cfg.get("precond") == "exact"
     say(name, iterations=rep.iterations, converged=rep.converged,
@@ -772,7 +890,7 @@ def check_solve(name, cfg, rep, counts, peak, max_iters, exact_iters=None,
         # the refinement loop restarts the inner solve; its launches are
         # bounded below, not counted exactly
         for mode in ("fwd", "bwd"):
-            key = variant_key(mode, 1, False, tri)
+            key = variant_key(mode, 1, lerp, tri)
             if counts["sweep_variants"].get(key, 0) < \
                     applies_per_call * rep.iterations:
                 fail(f"{name}: sweep launches {counts['sweep_variants']}")
@@ -790,7 +908,7 @@ def check_solve(name, cfg, rep, counts, peak, max_iters, exact_iters=None,
         fail(f"{name}: the corrected solve ran bwd_sub sweeps")
     wrong = [k for k in counts["sweep_variants"]
              if k.endswith(",tri") != tri]
-    if wrong or counts["sweep_lerp"]:
+    if wrong or counts["sweep_lerp"] != (counts["sweep"] if lerp else 0):
         fail(f"{name}: sweeps through {counts['sweep_variants']}")
     check_setup_launches(name, counts)
 
@@ -1172,6 +1290,200 @@ def profile_phases(out_dir):
 
 
 
+# -- the flagship scale, the accuracy study, the command line ----------------
+
+def flagship_phases(out_dir, paths, record):
+    """n = 2047 through the normal entry points: the single solve over
+    compressed and over dense G, the batched two-frequency sweep, and the
+    9-point batched sweep through the command line's `main` in this process
+    (so the launch counts read it).  A failure of any of them fails the
+    run; nothing here falls back."""
+    for name, cfg in (("flagship", FLAG), ("flagship_dense", FLAG_DENSE)):
+        rep, counts, peak = counted_solve(cfg, name)
+        check_solve(name, cfg, rep, counts, peak, max_iters=MAX_ITERS_FLAG,
+                    lerp=cfg["g_compress"])
+        if rep.config["factor_stride"] != FLAG_STRIDE:
+            fail(f"{name}: auto stride {rep.config['factor_stride']}, "
+                 f"expected {FLAG_STRIDE}")
+        paths[name] = counts
+        record[name] = rep.metrics()
+        record[f"{name}_peak_bytes"] = peak
+        del rep
+        torch.cuda.empty_cache()
+    cfg = FLAG_MULTI
+    kw = {k: v for k, v in cfg.items() if k != "wave_nums"}
+    recs, counts, peak = counted(lambda: ht.run_multisolve(
+        FLAG["n"], FLAG["b"], cfg["wave_nums"], **kw), "flagship_multi")
+    check_multisolve("flagship_multi", cfg, recs, counts, peak, True,
+                     max_iters=MAX_ITERS_FLAG)
+    paths["flagship_multi"] = counts
+    record["flagship_multi"] = recs
+    torch.cuda.empty_cache()
+    metrics = os.path.join(out_dir, "flagship9.jsonl")
+    if os.path.exists(metrics):
+        os.remove(metrics)
+    # the command prints each record too; the phase line below carries it
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc, counts, peak = counted(
+            lambda: cli.main(FLAG9_ARGV + ["--metrics", metrics]),
+            "flagship9")
+    with open(metrics) as fh:
+        recs = [json.loads(line) for line in fh if line.strip()]
+    if rc != 0:
+        fail(f"flagship9: the command exited {rc}")
+    check_multisolve("flagship9", FLAG9, recs, counts, peak, True, tri=True,
+                     max_iters=MAX_ITERS_FLAG9)
+    paths["flagship9"] = counts
+    record["flagship9"] = recs
+    torch.cuda.empty_cache()
+
+
+def accuracy_phase():
+    """`bench.accuracy`'s refine study on the card (complex64, ir-df32):
+    n = 63, 127, 255 at omega/2pi = 8 on both stencils, held to the bounds
+    of the JAX package's own accuracy test."""
+    def run():
+        rows = []
+        for n in ACCURACY_NS:
+            for stencil in ("5pt", "9pt"):
+                rec = measure_error(n, ACCURACY_WAVE_NUM, stencil)
+                rec["study"] = "refine"
+                rows.append(rec)
+        return rows
+
+    rows, counts, peak = counted(run)
+    orders = convergence_orders(rows)
+    err = {(r["stencil"], r["n"]): r["err_rel_interior"] for r in rows}
+    say("accuracy", rows=rows, convergence_orders=orders,
+        peak_memory_bytes=peak, launches=counts)
+    if not all(r["converged"] for r in rows):
+        fail(f"accuracy: not converged: {[r['converged'] for r in rows]}")
+    if not 1.6 < orders["5pt"][0] < 2.4:
+        fail(f"accuracy: 5-point order {orders['5pt']}")
+    if not orders["9pt"][0] > 3.4:
+        fail(f"accuracy: 9-point order {orders['9pt']}")
+    for n in ACCURACY_NS[:2]:
+        if not err[("9pt", n)] < err[("5pt", n)] / 20:
+            fail(f"accuracy: at n = {n} the 9-point error "
+                 f"{err[('9pt', n)]:.3e} is not 20x below the 5-point "
+                 f"{err[('5pt', n)]:.3e}")
+    # ir-df32 restarts its inner solves: the launches are bounded below
+    want = {variant_key(m, 1, False, tri) for m in ("fwd", "bwd")
+            for tri in (False, True)}
+    if counts["stencil_matvec"] < 1 or set(counts["sweep_variants"]) != want:
+        fail(f"accuracy: launches {counts}")
+    check_setup_launches("accuracy", counts)
+    return rows, orders, counts
+
+
+def cli_phase(out_dir):
+    """`python -m helmholtz_tpu_torch solve` at ORACLE.json's n = 127
+    configuration in a subprocess (its exit code, its iteration line, its
+    metrics), the same arguments through `cli.main` in this process with
+    the launches counted, and `plan --n 2047 --stencil 9pt` on the card."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    metrics = os.path.join(out_dir, "cli_solve.jsonl")
+    counted_metrics = os.path.join(out_dir, "cli_solve_counted.jsonl")
+    for path in (metrics, counted_metrics):
+        if os.path.exists(path):
+            os.remove(path)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "helmholtz_tpu_torch", *CLI_SOLVE,
+         "--metrics", metrics], cwd=root, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"cli_main: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(metrics) as fh:
+        rec = json.loads(fh.read().strip().splitlines()[-1])
+    line = next((l for l in proc.stdout.splitlines()
+                 if l.startswith("GMRES iterations")), None)
+    if (line is None or not rec["converged"]
+            or rec["iterations"] > MAX_ITERS_CLI
+            or not rec["device"].startswith("cuda")):
+        fail(f"cli_main: {line!r}, metrics {rec}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc, counts, peak = counted(lambda: cli.main(
+            [*CLI_SOLVE, "--metrics", counted_metrics]))
+    with open(counted_metrics) as fh:
+        rec_in = json.loads(fh.read().strip().splitlines()[-1])
+    it = rec_in["iterations"]
+    # one restart cycle: it + 1 products, it + 2 applies (see check_solve)
+    want = {variant_key(m, 1, False): it + 2 for m in ("fwd", "bwd")}
+    if rc != 0 or counts["stencil_matvec"] != it + 1 \
+            or counts["sweep_variants"] != want:
+        fail(f"cli_main in process: exit {rc}, {it} iterations, launches "
+             f"{counts}")
+    check_setup_launches("cli_main", counts)
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc_plan = cli.main(["plan", "--n", "2047", "--stencil", "9pt"])
+    plan9 = json.loads(buf.getvalue())
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    if (rc_plan != 0 or plan9["b"] != 147 or not plan9["fits_single_chip"]
+            or plan9["hbm_gb"] != card_gb):
+        fail(f"cli_main plan: exit {rc_plan}, {plan9}")
+    out = {"exit_code": proc.returncode, "iteration_line": line,
+           "metrics": rec, "subprocess_wall_s": wall,
+           "in_process_iterations": it, "in_process_peak_bytes": peak,
+           "plan_9pt_2047": plan9}
+    say("cli_main", **out, launches=counts)
+    return counts, out
+
+
+def plan_check():
+    """The capacity planner's peak (`bench.plan`) beside the peak each
+    full-width path allocated above what the script already held when the
+    path started (its own buffers, such as the 256 MiB cache flush).  The
+    amortized sweeps hold the previous anchor's stack, H_F stack and
+    operator while they factor the next anchor: that is added to the
+    one-frequency plan."""
+    def p5(n, batch, **kw):
+        return capacity.plan(n, 12, batch, g_dtype="bf16", **kw)
+
+    def p9(n, b, batch, compress, stride):
+        return capacity.plan9(n, b, batch, g_dtype="bf16",
+                              factor_stride=stride, g_compress=compress)
+
+    def anchor(p, fields):
+        return (p["g_stack_gb"] + p["tf_stack_gb"]
+                + fields * p["n"] ** 2 * 8 / 1e9)
+
+    n, nF = FULL["n"], FLAG["n"]
+    plans = {
+        "solve": (p5(n, 1, factor_stride=LERP_STRIDE), 0.0),
+        "multisolve": (p5(n, 4, factor_stride=LERP_STRIDE), 0.0),
+        "precision": (p5(n, 1, factor_stride=LERP_STRIDE), 0.0),
+        "bicgstab": (p5(n, 1, factor_stride=LERP_STRIDE), 0.0),
+        "solve9": (p9(n, NINE["b"], 1, False, LERP_STRIDE), 0.0),
+        "flagship": (p5(nF, 1, g_compress_stride=FLAG_STRIDE), 0.0),
+        "flagship_dense": (p5(nF, 1, factor_stride=FLAG_STRIDE), 0.0),
+        "flagship_multi": (p5(nF, 4, g_compress_stride=FLAG_STRIDE), 0.0),
+        "flagship9": (p9(nF, FLAG9["b"], 4, True, FLAG_STRIDE), 0.0),
+    }
+    amortized = p5(n, 4, g_compress_stride=LERP_STRIDE)
+    plans["amortized"] = (amortized, anchor(amortized, 5))
+    multi9 = p9(n, NINE["b"], 4, True, LERP_STRIDE)
+    plans["multisolve9"] = (multi9, anchor(multi9, 9))
+    rows = []
+    for path, (p, held) in plans.items():
+        mem = PATH_MEMORY[path]
+        planned = p["peak_gb"] + held
+        measured = (mem["peak_bytes"] - mem["base_bytes"]) / 1e9
+        phase = max(p["phase_gb"], key=p["phase_gb"].get)
+        rows.append({"path": path, "n": p["n"], "planned_gb": planned,
+                     "planned_phase": phase,
+                     "anchor_held_gb": held, "measured_gb": measured,
+                     "peak_bytes": mem["peak_bytes"],
+                     "base_bytes": mem["base_bytes"],
+                     "ratio": measured / planned})
+    say("plan_check", rows=rows, limit=PLAN_RATIO)
+    bad = [r for r in rows if not r["ratio"] <= PLAN_RATIO]
+    if bad:
+        fail(f"plan_check: measured above {PLAN_RATIO} x planned: {bad}")
+    return rows
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -1324,6 +1636,11 @@ def main():
                 say("kernel", **check_k2(*planes, mode, gen, timed=False,
                                          R=R, tables=tables_s, tri=tri))
 
+    # K2 at the flagship size, n = 2047: the launch plans the n = 1023
+    # checks never reach (no stage of a sample pair fits)
+    k2_2047 = check_k2_2047(gen, dev, keep)
+    say("k2_2047", variants=k2_2047)
+
     # a real factored G at n = 255: the kernel apply against the plain apply
     cfg_255 = ht.HelmholtzConfig(n=255, b=12, wave_num=32.0, const=62.0)
     prob = ht.assemble_problem(cfg_255)
@@ -1422,6 +1739,7 @@ def main():
             json.dump({"nvidia_smi": smi, "kind": kind, "kernels_only": True,
                        "peaks": PEAKS,
                        "stencil_matvec": rec_k1, "sweep_variants": variants,
+                       "k2_2047": k2_2047,
                        "gj_inverse": k3_recs, "blocked_inverse": rec_inv,
                        "bsr_matmat": k4_recs,
                        "bsr_matmat_instances": k4_instances}, fh, indent=1)
@@ -1433,7 +1751,7 @@ def main():
     check_solve("small_solve", SMALL, rep, counts, peak,
                 max_iters=ORACLE_ITERS_SMALL, exact_iters=ORACLE_ITERS_SMALL)
     paths = {}
-    rep, counts, peak = counted_solve(FULL)
+    rep, counts, peak = counted_solve(FULL, "solve")
     check_solve("solve", FULL, rep, counts, peak,
                 max_iters=ORACLE_ITERS_FULL + 1)
     paths["solve"] = counts
@@ -1453,7 +1771,7 @@ def main():
              ["factor"] + ["omega_lerp"] * 3 + ["factor"])):
         kw = {k: v for k, v in cfg.items() if k != "wave_nums"}
         recs, counts, peak = counted(lambda: ht.run_multisolve(
-            n, FULL["b"], cfg["wave_nums"], **kw))
+            n, FULL["b"], cfg["wave_nums"], **kw), name)
         check_multisolve(name, cfg, recs, counts, peak, lerp, modes)
         paths[name] = counts
         record[name] = recs
@@ -1461,7 +1779,7 @@ def main():
 
     # the tight tolerance: refinement in complex128 around the complex64
     # solve, and one refinement step of the preconditioner
-    rep, counts, peak = counted_solve(PRECISE)
+    rep, counts, peak = counted_solve(PRECISE, "precision")
     check_solve("precision", PRECISE, rep, counts, peak,
                 max_iters=MAX_ITERS_PRECISE, residual_below=1e-5,
                 applies_per_call=2)
@@ -1474,7 +1792,7 @@ def main():
             ("solve9", NINE, MAX_ITERS_NINE, {}),
             ("precision9", NINE_PRECISE, MAX_ITERS_NINE_PRECISE,
              dict(residual_below=1e-5, applies_per_call=2))):
-        rep, counts, peak = counted_solve(cfg)
+        rep, counts, peak = counted_solve(cfg, name)
         check_solve(name, cfg, rep, counts, peak, max_iters=limit, **kw)
         paths[name] = counts
         record[name] = rep.metrics()
@@ -1482,7 +1800,7 @@ def main():
     cfg = NINE_MULTI
     kw = {k: v for k, v in cfg.items() if k != "wave_nums"}
     recs, counts, peak = counted(lambda: ht.run_multisolve(
-        n, NINE["b"], cfg["wave_nums"], **kw))
+        n, NINE["b"], cfg["wave_nums"], **kw), "multisolve9")
     # ascending omega: 127.0 and 128.0 are the anchors, 127.5 lies between
     check_multisolve("multisolve9", cfg, recs, counts, peak, True,
                      ["factor", "omega_lerp", "factor"], tri=True)
@@ -1530,7 +1848,7 @@ def main():
 
     # BiCGStab: the main configuration, four sources in lockstep, the
     # 9-point scheme at n = 511
-    rep, counts, peak = counted_solve(BICG)
+    rep, counts, peak = counted_solve(BICG, "bicgstab")
     check_bicgstab("bicgstab", BICG, rep, counts, peak, MAX_ITERS_BICG)
     paths["bicgstab"] = counts
     record["bicgstab"] = rep.metrics()
@@ -1574,6 +1892,14 @@ def main():
     profile_phases(args.out_dir)
     torch.cuda.empty_cache()
 
+    # the flagship scale, n = 2047; the accuracy study; the command line;
+    # then the planner's peaks beside the measured ones
+    flagship_phases(args.out_dir, paths, record)
+    record["accuracy"], record["accuracy_orders"], paths["accuracy"] = \
+        accuracy_phase()
+    paths["cli_main"], record["cli_main"] = cli_phase(args.out_dir)
+    record["plan_check"] = plan_check()
+
     # the kernel table: every kernel variant that a full-width path
     # launched (all with bf16 G and the corrected backward step), with the
     # launches counted during those paths
@@ -1613,7 +1939,8 @@ def main():
             lerp, tri = "lerp" in parts, "tri" in parts
             name = variant_name(mode, path not in F32_PATHS, lerp=lerp,
                                 R=None if width == 1 else width, tri=tri,
-                                chunk=path in CHUNK_PATHS)
+                                chunk=path in CHUNK_PATHS,
+                                big=path in BIG_PATHS)
             launched.setdefault((name, width, lerp), {})[path] = c
     for (name, width, lerp), by_path in launched.items():
         if name not in by_name:
@@ -1663,7 +1990,21 @@ def main():
                                  "sweep_fwd[f32,lerp,chunk,R4]",
                                  "sweep_bwd[f32,lerp,chunk,R4]"]),
             ("checkpoint", ["stencil_matvec", "sweep_fwd[f32]",
-                            "sweep_bwd[f32]"])):
+                            "sweep_bwd[f32]"]),
+            ("flagship", ["stencil_matvec", "sweep_fwd[bf16,lerp,n2047]",
+                          "sweep_bwd[bf16,lerp,n2047]"]),
+            ("flagship_dense", ["stencil_matvec", "sweep_fwd[bf16,n2047]",
+                                "sweep_bwd[bf16,n2047]"]),
+            ("flagship_multi", ["stencil_matvec",
+                                "sweep_fwd[bf16,lerp,R4,n2047]",
+                                "sweep_bwd[bf16,lerp,R4,n2047]"]),
+            ("flagship9", ["sweep_fwd[bf16,lerp,tri,R4,n2047]",
+                           "sweep_bwd[bf16,lerp,tri,R4,n2047]"]),
+            ("accuracy", ["stencil_matvec", "sweep_fwd[f32]",
+                          "sweep_bwd[f32]", "sweep_fwd[f32,tri]",
+                          "sweep_bwd[f32,tri]"]),
+            ("cli_main", ["stencil_matvec", "sweep_fwd[f32]",
+                          "sweep_bwd[f32]"])):
         for name in wanted + ([] if path == "exact_residual"
                               else ["gj_inverse"]):
             if names.get(name, {}).get("launches_by_path", {}) \
@@ -1673,11 +2014,13 @@ def main():
     seconds = time.perf_counter() - t_start
     with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as fh:
         json.dump({"nvidia_smi": smi, "kind": kind, "seconds": seconds,
+                   "torch": torch.__version__, "cuda": torch.version.cuda,
                    "peaks": PEAKS,
                    "stencil_matvec": rec_k1, "sweep_variants": variants,
                    "gj_inverse": k3_recs, "blocked_inverse": rec_inv,
                    "bsr_matmat": k4_recs,
                    "bsr_matmat_instances": k4_instances, "kernels": table,
+                   "k2_2047": k2_2047, "path_memory": PATH_MEMORY,
                    "launches": paths, **record}, fh, indent=1)
     say("done", seconds=seconds)
     print(json.dumps({"kernels": table}), flush=True)
