@@ -74,9 +74,36 @@ and NINEPOINT.jsonl records), the study and the command line:
   cli_main      `python -m helmholtz_tpu_torch solve --n 127 ...` in a
                 subprocess (and the same arguments in this process, counted),
                 and `plan --n 2047 --stencil 9pt`;
+
+then the distributed path (`helmholtz_tpu_torch.dist`): four ranks, one
+process each, sharing the one card under gloo (NCCL refuses two ranks on
+one GPU; the rows and sums they exchange are staged through host memory),
+each phase beside the same call on one card in this process, every count
+the single-card one +-1 and within its limit:
+
+  dist_dryrun     `dist.dryrun` at n = 64 (its own checks of the batched
+                  bf16, ir-df32 and 9-point legs against one card);
+  dist_multisolve run_multisolve(mesh_devices=4) at n = 1024, omega/2pi =
+                  128, four sources, bf16 G at the auto stride (dense);
+  dist_amortized  three frequencies over compressed G at stride 7, the
+                  middle one the omega-lerp of its anchors;
+  dist_precision  one source at rtol 1e-6, precision="ir-df32", one
+                  preconditioner refinement;
+  dist9           the 9-point scheme at n = 1024 (b = 74, C = 60), three
+                  frequencies over compressed G;
+  dist_flagship   `multisolve --mesh 4 --n 2048 ...` through `cli.main`:
+                  omega/2pi = 256, four sources, bf16 G compressed at
+                  stride 8;
+
+each rank's launches checked (K3 under its setup, two K2 launches for each
+sweep chunk of its applies, on the 5-point scheme one K1 launch for each
+band product), then each kernel held against its plain version at the
+bands' shapes (`dist_band_k1`, the `band...` sweep variants);
+
   plan_check    the capacity planner's peak (bench.plan) beside the peak
                 each full-width path allocated above what the script held
-                before it;
+                before it, and each distributed path's highest rank peak
+                beside `bench.plan.plan_distributed`'s;
 
 Before the kernel phases it measures the card's peaks (`bench.roofline`:
 read-only and streaming memory rates, float32 matrix-product rate) and
@@ -124,6 +151,7 @@ from helmholtz_tpu_torch import driver as ht_driver
 from helmholtz_tpu_torch.bench import plan as capacity
 from helmholtz_tpu_torch.bench.accuracy import (convergence_orders,
                                                 measure_error)
+from helmholtz_tpu_torch.dist import launch
 from helmholtz_tpu_torch.fd import stencil as fd_stencil
 from helmholtz_tpu_torch.ops import dense
 from helmholtz_tpu_torch.ops import spmv as plain_spmv
@@ -251,6 +279,38 @@ ACCURACY_WAVE_NUM = 8.0
 CLI_SOLVE = ["solve", "--n", "127", "--wave-num", "16", "--const", "81"]
 MAX_ITERS_CLI = 3
 PLAN_RATIO = 1.05             # measured peak against the planner's, at most
+# The distributed path: four ranks, one process each, sharing the one card
+# under gloo (NCCL refuses two ranks on one GPU); n = 1024 and 2048, the
+# multiples of 4 next to the single-card sizes, as the JAX package ran
+# them.  Each phase also makes the same call on one card; every count must
+# be the single-card one +-1 (reduction order and bf16 rounding) and within
+# its limit.
+DIST_RANKS = 4
+DIST_LIMIT_S = 420            # a launch of the ranks fails past this
+DIST_N, DIST_FLAG_N = 1024, 2048
+DIST_DRYRUN_N = 64
+DIST_MULTI = dict(MULTI, wave_nums=MULTI["wave_nums"][:1],
+                  consts=MULTI["consts"][:1])
+DIST_AMORTIZED = dict(AMORTIZED, wave_nums=AMORTIZED["wave_nums"][:3],
+                      freq_anchor_every=2)
+DIST_PRECISE = dict(wave_nums=[PRECISE["wave_num"]], consts=[PRECISE["const"]],
+                    n_sources=1, **{k: PRECISE[k] for k in (
+                        "rtol", "precision", "precond_refine", "g_dtype",
+                        "maxiter")})
+DIST9 = dict(NINE_MULTI)
+DIST_FLAG = dict(wave_nums=[256.0], consts=[100.0], n_sources=4,
+                 g_dtype="bf16", factor_stride=FLAG_STRIDE, g_compress=True)
+DIST_FLAG_ARGV = ["multisolve", "--n", "2048", "--b", "12", "--freqs", "256",
+                  "--consts", "100", "--multi-rhs", "4", "--g-dtype", "bf16",
+                  "--factor-stride", "8", "--g-compress"]
+#: name: (n, b, config, the most iterations a source, true residual below)
+DIST_PHASES = {
+    "dist_multisolve": (DIST_N, 12, DIST_MULTI, MAX_ITERS_BATCHED, 1e-3),
+    "dist_amortized": (DIST_N, 12, DIST_AMORTIZED, MAX_ITERS_BATCHED, 1e-3),
+    "dist_precision": (DIST_N, 12, DIST_PRECISE, MAX_ITERS_PRECISE, 1e-5),
+    "dist9": (DIST_N, NINE["b"], DIST9, MAX_ITERS_BATCHED, 1e-3),
+    "dist_flagship": (DIST_FLAG_N, 12, DIST_FLAG, MAX_ITERS_FLAG, 1e-3),
+}
 # the paths whose sweeps run float32 G (the rest run bf16), those that run
 # the recompute preconditioner's chunk-sized sweeps, and those at n = 2047
 F32_PATHS = ("recompute", "recompute_multi", "checkpoint", "accuracy",
@@ -344,23 +404,25 @@ def check_k1(A, gen, flush, timed):
 
 
 def variant_name(mode, bf16, shared=False, lerp=False, R=None, tri=False,
-                 chunk=False, big=False):
+                 chunk=False, big=False, band=None):
     """`big`: a sweep at the flagship size n = 2047, whose launch plan
     differs from n = 1023's (16 rows a block; one stage of dense bf16 G,
-    none of a sample pair)."""
+    none of a sample pair).  `band`: a distributed band's sweep at grid
+    size `band` (n / 4 rows a rank)."""
     return (f"sweep_{mode}[{'bf16' if bf16 else 'f32'}"
             f"{',shared' if shared else ''}{',lerp' if lerp else ''}"
             f"{',tri' if tri else ''}{',chunk' if chunk else ''}"
-            f"{f',R{R}' if R else ''}{',n2047' if big else ''}]")
+            f"{f',R{R}' if R else ''}{',n2047' if big else ''}"
+            f"{f',band{band}' if band else ''}]")
 
 
 def check_k2(G_re, G_im, mode, gen, timed, rows=None, library_step=False,
-             R=None, tables=None, tri=False, chunk=False):
+             R=None, tables=None, tri=False, chunk=False, band=False):
     """One sweep over `rows` grid rows (default: one per panel, or one per
     entry of the lerp tables) through the kernel and through the plain loop,
     for R right-hand sides (None: the unbatched call), with diagonal or
     (`tri`) tridiagonal coupling.  `chunk` names the recompute
-    preconditioner's chunk-sized sweep."""
+    preconditioner's chunk-sized sweep, `band` a distributed band's."""
     Mg, n, _ = G_re.shape
     dev = G_re.device
     lerp = tables is not None
@@ -380,7 +442,8 @@ def check_k2(G_re, G_im, mode, gen, timed, rows=None, library_step=False,
     plain_ms = (time.perf_counter() - t0) * 1e3
     err, rel = rel_err(got, ref)
     name = variant_name(mode, G_re.dtype == torch.bfloat16, shared, lerp, R,
-                        tri, chunk, big=n == FLAG["n"])
+                        tri, chunk, big=n == FLAG["n"],
+                        band=n if band else None)
     if not (rel <= K2_TOL and math.isfinite(rel)):
         fail(f"{name} n={n}: relative error {rel:.3e} > {K2_TOL}")
     rec = {"name": name, "n": n, "steps": S, "max_abs_err": err,
@@ -469,7 +532,8 @@ def check_k2_2047(gen, dev, keep):
     recs = []
     G = random_g_bf16(M, n, gen, dev)
     for mode in ("fwd", "bwd"):
-        recs.append(check_k2(*G, mode, gen, timed=True))
+        recs.append(check_k2(*G, mode, gen, timed=True,
+                             library_step=(mode == "bwd")))
     del G
     torch.cuda.empty_cache()
     tables = lerp_tables(M, FLAG_STRIDE, dev)
@@ -487,7 +551,9 @@ def check_k2_2047(gen, dev, keep):
     for rec in recs:
         keep(rec)
     return [{"name": r["name"], "steps": r["steps"], "rel_err": r["rel_err"],
-             "ms": r["ms"], "plans": r["plans"]} for r in recs]
+             "ms": r["ms"], "plans": r["plans"],
+             **{k: r[k] for k in ("step_ms", "step_library_ms") if k in r}}
+            for r in recs]
 
 
 # -- K3 -----------------------------------------------------------------------
@@ -1431,6 +1497,204 @@ def cli_phase(out_dir):
     return counts, out
 
 
+# -- the distributed path -------------------------------------------------------
+
+def rank_counts(rank_launches):
+    """The launches of every rank of a record, summed, in `counted`'s form
+    (the sweeps by `variant_key`)."""
+    out = {"stencil_matvec": 0, "sweep": 0, "gj_inverse": 0,
+           "bsr_matmat": 0, "sweep_variants": {}}
+    for c in rank_launches:
+        for k in ("stencil_matvec", "sweep", "gj_inverse"):
+            out[k] += c[k]
+        for key, n in c["sweep_variants"].items():
+            mode, width, lerp, tri = key.split(",")
+            v = variant_key(mode, int(width), lerp == "True", tri == "True")
+            out["sweep_variants"][v] = out["sweep_variants"].get(v, 0) + n
+    return out
+
+
+def add_counts(total, counts):
+    for k in ("stencil_matvec", "sweep", "gj_inverse", "bsr_matmat"):
+        total[k] = total.get(k, 0) + counts[k]
+    variants = total.setdefault("sweep_variants", {})
+    for v, n in counts["sweep_variants"].items():
+        variants[v] = variants.get(v, 0) + n
+    return total
+
+
+def check_rank_launches(name, rank_launches, five_point):
+    """Each rank of one record: K3 under its setup, one K2 launch a
+    direction for every sweep chunk of its applies, and on the 5-point
+    scheme one K1 launch for every complex64 band product (none on the
+    9-point scheme, whose product is plain tensor code)."""
+    chunks = {c["apply_chunks"] for c in rank_launches}
+    if len(rank_launches) != DIST_RANKS or len(chunks) != 1 or 0 in chunks:
+        fail(f"{name}: the ranks' applies differ or are missing: "
+             f"{rank_launches}")
+    for r, c in enumerate(rank_launches):
+        if c["gj_inverse"] < 1:
+            fail(f"{name}: rank {r} launched no Gauss-Jordan kernel")
+        if c["sweep"] != 2 * c["apply_chunks"]:
+            fail(f"{name}: rank {r} made {c['sweep']} sweep launches for "
+                 f"{c['apply_chunks']} sweep chunks of applies")
+        want = c["band_products"] if five_point else 0
+        if c["stencil_matvec"] != want or (five_point and want < 1):
+            fail(f"{name}: rank {r} made {c['stencil_matvec']} stencil "
+                 f"launches for {c['band_products']} band products")
+
+
+def dist_multisolve_phase(name, out_dir):
+    """One distributed phase: the call across DIST_RANKS ranks on the card,
+    then the same call on one card in this process.  Returns (the summed
+    counts of the ranks, the phase's record)."""
+    n, b, cfg, max_iters, res_below = DIST_PHASES[name]
+    kw = {k: v for k, v in cfg.items() if k != "wave_nums"}
+    nine = kw.get("stencil") == "9pt"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    if name == "dist_flagship":
+        metrics = os.path.join(out_dir, "dist_flagship.jsonl")
+        if os.path.exists(metrics):
+            os.remove(metrics)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(DIST_FLAG_ARGV + ["--mesh", str(DIST_RANKS),
+                                            "--metrics", metrics])
+        if rc != 0:
+            fail(f"{name}: the command exited {rc}")
+        with open(metrics) as fh:
+            recs = [json.loads(line) for line in fh if line.strip()]
+    else:
+        recs = ht.run_multisolve(n, b, cfg["wave_nums"],
+                                 mesh_devices=DIST_RANKS, **kw)
+    t_dist = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single, counts1, peak1 = counted(lambda: ht.run_multisolve(
+        n, b, cfg["wave_nums"], **kw), name + "_single")
+    t_single = time.perf_counter() - t0
+    total = {}
+    for rec, ref in zip(recs, single, strict=True):
+        what = f"{name} at {rec['wave_num']}"
+        if (rec["mesh_devices"], rec["ranks_per_card"],
+                rec["dist_backend"]) != (DIST_RANKS, DIST_RANKS, "gloo"):
+            fail(f"{what}: ran as {rec['mesh_devices']} ranks, "
+                 f"{rec['ranks_per_card']} a card, {rec['dist_backend']}")
+        if rec.get("setup_mode") != ref.get("setup_mode"):
+            fail(f"{what}: setup mode {rec.get('setup_mode')}, one card "
+                 f"{ref.get('setup_mode')}")
+        if not all(rec["converged"]):
+            fail(f"{what}: not converged: {rec['converged']}")
+        if max(rec["iterations"]) > max_iters:
+            fail(f"{what}: iterations {rec['iterations']} > {max_iters}")
+        if any(abs(a - c) > 1 for a, c in zip(rec["iterations"],
+                                              ref["iterations"])):
+            fail(f"{what}: iterations {rec['iterations']}, one card "
+                 f"{ref['iterations']} (+-1)")
+        if not all(r < res_below for r in rec["true_residuals"]):
+            fail(f"{what}: true residuals {rec['true_residuals']}")
+        check_rank_launches(what, rec["rank_launches"], not nine)
+        add_counts(total, rank_counts(rec["rank_launches"]))
+    peaks = [max(r["rank_peak_bytes"][k] for r in recs)
+             for k in range(DIST_RANKS)]
+    PATH_MEMORY[name] = {"peak_bytes": max(peaks), "base_bytes": 0,
+                         "rank_peak_bytes": peaks}
+    out = {
+        "n": n, "b": b, "ranks": DIST_RANKS, "backend": "gloo",
+        "ranks_per_card": DIST_RANKS, "seconds": t_dist,
+        "single_card_seconds": t_single,
+        "records": [{k: r.get(k) for k in (
+            "wave_num", "setup_mode", "iterations", "converged",
+            "true_residuals", "init_time_s", "solve_time_s",
+            "per_device_g_bytes", "rank_peak_bytes", "rank_launches")}
+            for r in recs],
+        "single_card": [{k: r.get(k) for k in (
+            "wave_num", "setup_mode", "iterations", "true_residuals",
+            "init_time_s", "solve_time_s")} for r in single],
+        "single_card_peak_bytes": peak1, "launches": total}
+    say(name, **out)
+    return total, out
+
+
+def dist_dryrun_phase():
+    """`dist.dryrun` at n = 64 on DIST_RANKS ranks: its own checks against
+    the single-card legs, and the ranks' launches.  Its 5-point legs sweep
+    bf16 G, its 9-point leg float32 G."""
+    from helmholtz_tpu_torch.dist import dryrun
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        out = dryrun.dryrun_multichip(DIST_RANKS, n=DIST_DRYRUN_N)
+    except AssertionError as e:
+        fail(f"dist_dryrun: {e}")
+    check_rank_launches("dist_dryrun", out["rank_launches"], True)
+    total = rank_counts(out["rank_launches"])
+    out = {k: v for k, v in out.items() if k != "rank_launches"}
+    say("dist_dryrun", seconds=time.perf_counter() - t0, launches=total,
+        **out)
+    return total, out
+
+
+#: the grid size of each distributed path, which names its sweeps' band
+DIST_PATH_N = {"dist_dryrun": DIST_DRYRUN_N,
+               **{k: v[0] for k, v in DIST_PHASES.items()}}
+
+
+def dist_sweep_name(path, key):
+    """The kernel-table name of a distributed path's sweep variant: bf16 G
+    but the dry run's 9-point leg (float32)."""
+    parts = key.split(",")
+    mode, width = parts[0], int(parts[1][1:])
+    lerp, tri = "lerp" in parts, "tri" in parts
+    bf16 = not (path == "dist_dryrun" and tri)
+    return (variant_name(mode, bf16, lerp=lerp,
+                         R=None if width == 1 else width, tri=tri,
+                         band=DIST_PATH_N[path]), mode, width, lerp, tri,
+            bf16)
+
+
+def check_band_kernels(paths, gen, flush, keep):
+    """Each kernel at the shapes the distributed paths gave it, against its
+    plain version: K1 on a middle band of each grid size's operator
+    (n / 4 rows); K2 for every sweep variant a distributed path launched,
+    at its band shape (n / 4 panels, or the band's sample window at the
+    stride of the path: 7 at n = 1024, 8 at n = 2048)."""
+    dev = flush.device
+    recs = []
+    for n in sorted(set(DIST_PATH_N.values())):
+        rows = torch.arange(n // 4, n // 2, device=dev)
+        cfg = ht.HelmholtzConfig(n=n, b=12, wave_num=n / 8.0, const=100.0)
+        c_full, _ = ht.problems.PROBLEMS["c1_f1"](
+            cfg.omega, n, complex_dtype=torch.complex64, device=dev)
+        A = fd_stencil.build_a_stencil_rows(
+            rows, n, cfg.b, cfg.const, cfg.eta, cfg.omega, cfg.h, c_full,
+            fidelity="corrected", complex_dtype=torch.complex64)
+        rec = check_k1(A, gen, None, timed=False)
+        say("kernel", name="stencil_matvec", band=True, **rec)
+        recs.append(rec)
+    seen = set()
+    for path in DIST_PATH_N:
+        for key in paths.get(path, {}).get("sweep_variants", {}):
+            name, mode, width, lerp, tri, bf16 = dist_sweep_name(path, key)
+            if name in seen:
+                continue
+            seen.add(name)
+            n = DIST_PATH_N[path]
+            n_loc = n // DIST_RANKS
+            stride = FLAG_STRIDE if n == DIST_FLAG_N else LERP_STRIDE
+            tables = lerp_tables(n_loc, stride, dev) if lerp else None
+            panels = int(tables[0].max()) + 2 if lerp else n_loc
+            G = random_g(panels, n, gen, dev)
+            if bf16:
+                G = [g.to(torch.bfloat16) for g in G]
+            keep(check_k2(*G, mode, gen, timed=True,
+                          R=None if width == 1 else width, tables=tables,
+                          tri=tri, band=True))
+            del G
+            torch.cuda.empty_cache()
+    return recs
+
+
 def plan_check():
     """The capacity planner's peak (`bench.plan`) beside the peak each
     full-width path allocated above what the script already held when the
@@ -1465,6 +1729,22 @@ def plan_check():
     plans["amortized"] = (amortized, anchor(amortized, 5))
     multi9 = p9(n, NINE["b"], 4, True, LERP_STRIDE)
     plans["multisolve9"] = (multi9, anchor(multi9, 9))
+    for name, (nd, b, cfg, _, _) in DIST_PHASES.items():
+        stride = cfg.get("factor_stride") or ht_driver.auto_factor_stride(
+            nd, "c1_f1")
+        p = capacity.plan_distributed(
+            nd, b, DIST_RANKS, stride, "bf16",
+            g_compress=bool(cfg.get("g_compress")),
+            batch=cfg["n_sources"], stencil=cfg.get("stencil", "5pt"))
+        p["n"] = nd
+        # an amortized rank holds the bracketing anchors' states (samples,
+        # H_F stack, band couplings) while it builds a frequency between
+        # them
+        fields = 9 if cfg.get("stencil") == "9pt" else 5
+        held = (2 * (p["per_device_g_gb"] + p["tf_stack_gb"]
+                     + fields * nd * nd // DIST_RANKS * 8 / 1e9)
+                if cfg.get("freq_anchor_every", 1) > 1 else 0.0)
+        plans[name] = (p, held)
     rows = []
     for path, (p, held) in plans.items():
         mem = PATH_MEMORY[path]
@@ -1898,6 +2178,17 @@ def main():
     record["accuracy"], record["accuracy_orders"], paths["accuracy"] = \
         accuracy_phase()
     paths["cli_main"], record["cli_main"] = cli_phase(args.out_dir)
+
+    # the distributed path: four ranks sharing the card, each phase beside
+    # its single-card call; then each kernel at the bands' shapes
+    launch.RANK_LIMIT_S = DIST_LIMIT_S
+    t_dist = time.perf_counter()
+    paths["dist_dryrun"], record["dist_dryrun"] = dist_dryrun_phase()
+    for name in DIST_PHASES:
+        paths[name], record[name] = dist_multisolve_phase(name,
+                                                          args.out_dir)
+    record["dist_band_k1"] = check_band_kernels(paths, gen, flush, keep)
+    record["dist_seconds"] = time.perf_counter() - t_dist
     record["plan_check"] = plan_check()
 
     # the kernel table: every kernel variant that a full-width path
@@ -1937,10 +2228,13 @@ def main():
             parts = key.split(",")
             mode, width = parts[0], int(parts[1][1:])
             lerp, tri = "lerp" in parts, "tri" in parts
-            name = variant_name(mode, path not in F32_PATHS, lerp=lerp,
-                                R=None if width == 1 else width, tri=tri,
-                                chunk=path in CHUNK_PATHS,
-                                big=path in BIG_PATHS)
+            if path in DIST_PATH_N:
+                name = dist_sweep_name(path, key)[0]
+            else:
+                name = variant_name(mode, path not in F32_PATHS, lerp=lerp,
+                                    R=None if width == 1 else width,
+                                    tri=tri, chunk=path in CHUNK_PATHS,
+                                    big=path in BIG_PATHS)
             launched.setdefault((name, width, lerp), {})[path] = c
     for (name, width, lerp), by_path in launched.items():
         if name not in by_name:
@@ -2004,7 +2298,24 @@ def main():
                           "sweep_bwd[f32]", "sweep_fwd[f32,tri]",
                           "sweep_bwd[f32,tri]"]),
             ("cli_main", ["stencil_matvec", "sweep_fwd[f32]",
-                          "sweep_bwd[f32]"])):
+                          "sweep_bwd[f32]"]),
+            ("dist_dryrun", ["stencil_matvec", "sweep_fwd[bf16,R2,band64]",
+                             "sweep_bwd[bf16,R2,band64]",
+                             "sweep_fwd[f32,tri,band64]",
+                             "sweep_bwd[f32,tri,band64]"]),
+            ("dist_multisolve", ["stencil_matvec",
+                                 "sweep_fwd[bf16,R4,band1024]",
+                                 "sweep_bwd[bf16,R4,band1024]"]),
+            ("dist_amortized", ["stencil_matvec",
+                                "sweep_fwd[bf16,lerp,R4,band1024]",
+                                "sweep_bwd[bf16,lerp,R4,band1024]"]),
+            ("dist_precision", ["stencil_matvec", "sweep_fwd[bf16,band1024]",
+                                "sweep_bwd[bf16,band1024]"]),
+            ("dist9", ["sweep_fwd[bf16,lerp,tri,R4,band1024]",
+                       "sweep_bwd[bf16,lerp,tri,R4,band1024]"]),
+            ("dist_flagship", ["stencil_matvec",
+                               "sweep_fwd[bf16,lerp,R4,band2048]",
+                               "sweep_bwd[bf16,lerp,R4,band2048]"])):
         for name in wanted + ([] if path == "exact_residual"
                               else ["gj_inverse"]):
             if names.get(name, {}).get("launches_by_path", {}) \

@@ -4,7 +4,8 @@ Complex 2-D finite-difference Helmholtz assembly with PML, the sparse
 formats (stencil, COO, CSR, BSR) and their products, the Engquist-Ying
 sweeping preconditioner with moving PML and the exact sweeping
 factorization (stored, or re-derived inside every apply), GMRES and
-BiCGStab, checkpoints of factored and in-flight state, on one NVIDIA H100.  The four kernels are
+BiCGStab, checkpoints of factored and in-flight state, on one NVIDIA H100,
+and the distributed path over ranks on `torch.distributed` (`dist`).  The four kernels are
 hand-written CUDA: stencil SpMV and the sweep recursion on the solve paths
 (one or many right-hand sides, over dense, shared or sample-compressed
 factors, with the 5-point scheme's diagonal or the 9-point scheme's
@@ -15,8 +16,8 @@ JAX package; entry points run on the card unless the caller passes
 `device="cpu"`.
 """
 
-from .config import (HelmholtzConfig, PrecisionConfig, PrecondConfig,
-                     SolverConfig)
+from .config import (HelmholtzConfig, PartitionConfig, PrecisionConfig,
+                     PrecondConfig, SolverConfig)
 from .core.sparse import BSR, COO, CSR, Stencil5, Stencil9
 from .fd.assembly import Problem, assemble_problem, interlayer_couplings
 from .fd import problems

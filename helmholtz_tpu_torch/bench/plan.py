@@ -174,9 +174,9 @@ def plan(n: int, b: int = 12, batch: int = 1, restart: int = 20,
         "fits_single_chip": bool(fits),
         "min_devices_row_sharded": int(min_dev),
         "per_device_gb_at_min": _gb(sharded(min_dev)),
-        "note": ("G planes at pitch g_ld(n); TF complex64; G would shard "
-                 "with the grid rows on the distributed path, which the "
-                 "port does not have yet; the F-band factors replicate"),
+        "note": ("G planes at pitch g_ld(n); TF complex64; on the "
+                 "distributed path G shards with the grid rows and the "
+                 "F-band factors replicate (plan_distributed)"),
     }
 
 
@@ -236,13 +236,33 @@ def plan9(n: int, b: int | None = None, batch: int = 1, restart: int = 20,
 def plan_distributed(n: int, b: int = 12, devices: int = 8,
                      factor_stride: int = 8, g_dtype: str = "bf16",
                      g_compress: bool = True,
-                     hbm_gb: float = 80.0) -> dict:
-    """Per-device budget of the distributed strided/compressed setup (the
-    JAX package's `dist.factor.distributed_setup`, not ported yet): how
-    much G each device stores and how many subgrid factorizations it pays,
-    against the dense stride-1 per-band setup.  Mirrors the sample-window
-    geometry (globally anchored samples, one-sample band overlap) through
-    the port's `precond.sweeping.band_sample_window`; pure arithmetic."""
+                     hbm_gb: float = 80.0, *, batch: int = 1,
+                     restart: int = 20, stencil: str = "5pt",
+                     setup_chunk: int = DEFAULT_SETUP_CHUNK) -> dict:
+    """Per-device budget of the distributed setup and solve
+    (`dist.factor.distributed_setup(9)`, `dist.solve`): how much G each
+    rank stores and how many subgrid factorizations it pays, against the
+    dense stride-1 per-band setup, through the sample-window geometry
+    (globally anchored samples, one-sample band overlap) of
+    `dist.partition.band_sample_windows`; and each rank's peak device
+    memory over the phases it passes through, in the port's layout:
+
+      setup   the band's operator rows, the full velocity and forcing
+              grids, the band's subgrid family (5-point: every subgrid the
+              rank factors; 9-point: one chunk, assembled inside the factor
+              loop), the factored planes (float32 samples of a strided
+              dense setup) and the batched inverse's workspace; a dense
+              stride-1 band adds its row-aligned copy (rank 0's F panels);
+      expand  a strided dense band's samples and its dense planes while
+              the lerp expands one into the other;
+      hf      H_F's stack being built (two or three copies) beside G;
+      solve   G, H_F's stack, the band's Krylov basis of `batch` vectors
+              and the full and banded forcings.
+
+    Like `plan`, a prediction; `chip_smoke.py` (`plan_check`) holds each
+    rank's measured peak to it."""
+    from ..dist.partition import band_sample_windows
+
     M = n - b
     R = max(1, factor_stride)
     # the distributed setup needs devices | n; when the target n (2047, say)
@@ -250,30 +270,53 @@ def plan_distributed(n: int, b: int = 12, devices: int = 8,
     n_loc = -(-n // devices)
     g_item = _G_ITEM[g_dtype]
     ld = g_ld(n)
-    if R > 1:
-        widths = []
-        for d in range(devices):
-            s0, s1 = band_sample_window(M, R, max(d * n_loc, b) - b,
-                                        (d + 1) * n_loc - 1 - b)
-            widths.append(s1 - s0 + 1)
-        ms_loc = max(widths)
-    else:
-        ms_loc = n_loc
+    nine = stencil == "9pt"
+    ms_loc = (band_sample_windows(M, R, b, n_loc, devices)[1] if R > 1
+              else n_loc)
     subgrids_per_dev = ms_loc if R > 1 else n_loc
-    panels_per_dev = ms_loc if (R > 1 and g_compress) else n_loc
+    compressed = R > 1 and g_compress
+    panels_per_dev = ms_loc if compressed else n_loc
     per_dev_g = 2 * panels_per_dev * n * ld * g_item
     dense_per_dev_g = 2 * n_loc * n * ld * g_item
+
+    N, Nl = n * n, n_loc * n
+    fields = 9 if nine else 5
+    strided_dense = R > 1 and not compressed
+    samples = 2 * subgrids_per_dev * n * ld * _F32 if strided_dense else 0
+    tf = b * N * _C64
+    operator = fields * Nl * _C64 + 2 * N * _C64
+    chunk = min(_clamped_chunk(setup_chunk, n), subgrids_per_dev)
+    family = fields * (chunk if nine else subgrids_per_dev) * b * n * _C64
+    setup_ws = SETUP_BYTES_PER_WORD * chunk * N
+    wchunk = min(n_loc, max(4, min(setup_chunk, EXPAND_WORKSPACE_WORDS
+                                   // (n * ld))))
+    expand_ws = EXPAND_TEMPORARIES * wchunk * n * ld * _F32
+    sources = batch * (N + Nl) * _C64
+    krylov = (restart + 2) * Nl * _C64 * batch
+    row_copy = per_dev_g if R == 1 else 0
+    setup = (operator + family + (samples if strided_dense else per_dev_g)
+             + setup_ws + row_copy)
+    expand = (operator + samples + per_dev_g + expand_ws
+              if strided_dense else 0)
+    tf_copies = 3 if nine and g_item != 4 else 2
+    hf = operator + per_dev_g + tf_copies * tf + SETUP_BYTES_PER_WORD * N
+    solve = operator + per_dev_g + tf + krylov + sources
+    phases = dict(setup=setup, expand=expand, hf=hf, solve=solve)
     return {
         "n": n, "b": b, "devices": devices, "factor_stride": R,
         "g_dtype": g_dtype, "g_compress": bool(g_compress),
+        "stencil": stencil, "batch": batch,
         "rows_per_device": n_loc,
         "subgrids_factored_per_device": subgrids_per_dev,
         "setup_flop_fraction_vs_dense": round(subgrids_per_dev / n_loc, 4),
         "g_panels_per_device": panels_per_dev,
         "per_device_g_gb": round(per_dev_g / 1e9, 3),
         "per_device_g_gb_dense": round(dense_per_dev_g / 1e9, 3),
+        "tf_stack_gb": _gb(tf),
+        "phase_gb": {k: _gb(v) for k, v in phases.items()},
+        "peak_gb": _gb(max(phases.values())),
         "hbm_gb": hbm_gb,
-        "fits_per_device": bool(per_dev_g < 0.92 * hbm_gb * 1e9),
+        "fits_per_device": bool(max(phases.values()) < 0.92 * hbm_gb * 1e9),
     }
 
 

@@ -13,20 +13,16 @@ the JAX package's `--platform`: it becomes `device=` on every call, and the
 card is never replaced by the CPU unless `--device cpu` is given (without a
 card the default raises).  Left out, because they are the JAX package's
 accelerator workarounds: `--method gmres-hostloop` and `--schur-block`.
-`bench-scaling` and `multisolve --mesh` belong to the distributed path,
-which is not ported yet, and raise NotImplementedError.  The module
-imports nothing heavy until a subcommand runs, so `--help` needs no card.
+`multisolve --mesh D` runs the distributed path on D ranks, one process
+each (`dist.launch`: on the card NCCL when every rank has a card of its
+own, gloo otherwise; gloo on the CPU).  The module imports nothing heavy
+until a subcommand runs, so `--help` needs no card.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
-
-#: what `bench-scaling` and `multisolve --mesh` raise
-NOT_PORTED = ("the distributed path is not ported yet (ROADMAP.md queue 1, "
-              "item 16): {what} needs it")
-
 
 def _add_device_arg(p):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -216,8 +212,6 @@ def cmd_multisolve(args):
     frequency, one JSON record per frequency.  With --checkpoint, completed
     frequencies are recorded and skipped when the sweep is restarted after
     a kill (`solve.resumable.SweepCheckpoint`)."""
-    if args.mesh:
-        raise NotImplementedError(NOT_PORTED.format(what="--mesh"))
     from .driver import multisolve_key_config, run_multisolve
     from .solve.resumable import SweepCheckpoint
 
@@ -296,9 +290,17 @@ def cmd_multisolve(args):
 
 
 def cmd_bench_scaling(args):
-    """Scaling efficiency at 1..K devices: the distributed path's harness,
-    not ported yet."""
-    raise NotImplementedError(NOT_PORTED.format(what="bench-scaling"))
+    """Scaling efficiency of the distributed path at 1..K ranks
+    (`bench.scaling`)."""
+    from .bench.scaling import main as scaling_main
+
+    argv = ["--strong-n", str(args.n), "--b", str(args.b),
+            "--ndevs", *map(str, args.ndevs), "--device", args.device]
+    if args.anchor:
+        argv.append("--anchor")
+    if args.out:
+        argv += ["--out", args.out]
+    return scaling_main(argv)
 
 
 def cmd_bench_sweep(args):
@@ -332,8 +334,8 @@ def main(argv=None):
                     "port).",
         epilog="Not ported: --method gmres-hostloop and --schur-block "
                "(accelerator workarounds of the JAX package); "
-               "bench-scaling and multisolve --mesh raise until the "
-               "distributed path is ported.")
+               "multisolve --mesh and bench-scaling run the distributed "
+               "path, one process per rank.")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("solve", help="single preconditioned solve")
@@ -365,8 +367,8 @@ def main(argv=None):
     p.add_argument("--restart", type=int, default=20)
     p.add_argument("--maxiter", type=int, default=None)
     p.add_argument("--mesh", type=int, default=None, metavar="D",
-                   help="the distributed path on D devices: not ported yet, "
-                        "raises NotImplementedError")
+                   help="the distributed path: the grid rows in bands over "
+                        "D ranks (D must divide n, and b < n/D)")
     p.add_argument("--g-dtype", default="working",
                    choices=["working", "f32", "bf16"])
     p.add_argument("--precision", default="f32", choices=["f32", "ir-df32"])
@@ -397,14 +399,16 @@ def main(argv=None):
     p.set_defaults(fn=cmd_multisolve)
 
     p = sub.add_parser("bench-scaling",
-                       help="solve-time scaling efficiency at 1..K devices "
-                            "(distributed path: not ported yet)")
+                       help="solve-time scaling efficiency at 1..K ranks "
+                            "of the distributed path")
     p.add_argument("--n", type=int, default=64)
     p.add_argument("--b", type=int, default=3)
     p.add_argument("--ndevs", type=int, nargs="+", default=[1, 2, 4, 8])
     p.add_argument("--anchor", action="store_true",
-                   help="include the real-chip 1-device-mesh anchor")
+                   help="include the one-rank anchors against the "
+                        "single-card apply and setup (on the card)")
     p.add_argument("--out", metavar="JSON")
+    _add_device_arg(p)
     p.set_defaults(fn=cmd_bench_scaling)
 
     p = sub.add_parser("plan",

@@ -82,6 +82,15 @@ class PrecondConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class PartitionConfig:
+    """1-D layer partitioning over ranks (`dist`): the number of ranks the
+    grid rows are cut into, and the name of that axis."""
+
+    num_devices: int = 1
+    axis_name: str = "layers"
+
+
+@dataclasses.dataclass(frozen=True)
 class PrecisionConfig:
     """Dtype policy: the working complex type.  The port computes in
     complex64 on the card by default and in complex128 on the CPU for the

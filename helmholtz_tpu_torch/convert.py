@@ -125,3 +125,77 @@ def preconditioner9_from_numpy(G_re, G_im, TF, hf_l, hf_u, a_l, a_u, b: int,
         a_l=_complex_tensor(a_l, dev), a_u=_complex_tensor(a_u, dev),
         b=b, d2_replace=d2_replace,
         **_tables_from_numpy(g_w, g_lo, g_stride, dev))
+
+
+def _band_planes(G_re, G_im, n, L, rank, n_devices, g_stride, g_dtype, dev):
+    """Rank `rank`'s G planes from the global row-aligned (L, .., ..) or
+    per-band sample (n_devices * Ms_loc, .., ..) planes."""
+    per = np.asarray(G_re).shape[0] // n_devices
+    if not g_stride and per != L // n_devices:
+        raise ValueError(f"dense planes have {per * n_devices} panels for "
+                         f"{L} rows")
+    sl = slice(rank * per, (rank + 1) * per)
+    return (g_planes_from_numpy(np.asarray(G_re)[sl], n, g_dtype=g_dtype,
+                                device=dev),
+            g_planes_from_numpy(np.asarray(G_im)[sl], n, g_dtype=g_dtype,
+                                device=dev))
+
+
+def _band_tables(g_w, g_lo, g_stride, rows, dev) -> dict:
+    if not g_stride:
+        return {}
+    return _tables_from_numpy(np.asarray(g_w)[rows], np.asarray(g_lo)[rows],
+                              g_stride, dev)
+
+
+def dist_state_from_numpy(G_re, G_im, TF, hf_cs, hf_cn, a_cs, a_cn, b: int,
+                          d2_replace: bool, n: int, *, rank: int,
+                          n_devices: int, g_dtype=None, g_w=None, g_lo=None,
+                          g_stride: int = 0, device="cuda"):
+    """Rank `rank`'s band (`dist.partition.DistSweepState`) of another
+    implementation's GLOBAL distributed 5-point state, as numpy leaves: G
+    planes row-aligned (L, n(_pad), n(_pad)) with zero F panels, or for a
+    sample-compressed state (g_stride > 0) the bands' sample windows one
+    after another (n_devices * Ms_loc panels) with per-row local tables
+    g_w (L, 2) and g_lo (L,); TF (b, n, n), hf_cs, hf_cn (b, n); the
+    couplings a_cs, a_cn (L, n)."""
+    from .dist.partition import DistSweepState
+
+    dev = resolve_device(device)
+    L = np.asarray(a_cs).shape[0]
+    n_loc = L // n_devices
+    rows = slice(rank * n_loc, (rank + 1) * n_loc)
+    G = _band_planes(G_re, G_im, n, L, rank, n_devices, g_stride, g_dtype,
+                     dev)
+    return DistSweepState(
+        G_re=G[0], G_im=G[1], TF=_complex_tensor(TF, dev),
+        hf_cs=_complex_tensor(hf_cs, dev), hf_cn=_complex_tensor(hf_cn, dev),
+        a_cs=_complex_tensor(np.asarray(a_cs)[rows], dev),
+        a_cn=_complex_tensor(np.asarray(a_cn)[rows], dev), b=b,
+        d2_replace=d2_replace,
+        **_band_tables(g_w, g_lo, g_stride, rows, dev))
+
+
+def dist_state9_from_numpy(G_re, G_im, TF, hf_l, hf_u, a_l, a_u, b: int,
+                           d2_replace: bool, n: int, *, rank: int,
+                           n_devices: int, g_dtype=None, g_w=None, g_lo=None,
+                           g_stride: int = 0, device="cuda"):
+    """`dist_state_from_numpy` for the 9-point state
+    (`dist.partition.DistSweepState9`): coupling triples hf_l, hf_u
+    (b, 3, n) and a_l, a_u (L, 3, n), and TF complex (b, n, n) with its
+    values already rounded to whatever type stored them."""
+    from .dist.partition import DistSweepState9
+
+    dev = resolve_device(device)
+    L = np.asarray(a_l).shape[0]
+    n_loc = L // n_devices
+    rows = slice(rank * n_loc, (rank + 1) * n_loc)
+    G = _band_planes(G_re, G_im, n, L, rank, n_devices, g_stride, g_dtype,
+                     dev)
+    return DistSweepState9(
+        G_re=G[0], G_im=G[1], TF=_complex_tensor(TF, dev),
+        hf_l=_complex_tensor(hf_l, dev), hf_u=_complex_tensor(hf_u, dev),
+        a_l=_complex_tensor(np.asarray(a_l)[rows], dev),
+        a_u=_complex_tensor(np.asarray(a_u)[rows], dev), b=b,
+        d2_replace=d2_replace,
+        **_band_tables(g_w, g_lo, g_stride, rows, dev))

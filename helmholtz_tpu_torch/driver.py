@@ -789,14 +789,21 @@ def run_multisolve(n: int, b: int, wave_nums, consts=None,
     PML width checked as in `run_solver`).  `precond="recompute"` (5-point,
     no frequency amortization) keeps no factor stack; the batch shares each
     chunk's re-factorization (`precond.recompute.apply_recompute_multi`).
-    `mesh_devices` belongs to a later slice of the port and raises
-    NotImplementedError.
+
+    `mesh_devices=D` runs the distributed path (`dist`): D ranks, one
+    process each (`dist.launch.run_ranks`; in place when a process group
+    of D ranks already runs), each holding a band of n / D grid rows and
+    factoring only its band (`dist.factor.distributed_setup`); the solve is
+    the distributed GMRES (`dist.solve`).  Needs D | n and b < n / D.  Its
+    records (rank 0's) gain `mesh_devices`, `per_device_g_bytes` (one
+    rank's G planes), `dist_backend`, `ranks_per_card` (None on the CPU),
+    and per rank the kernel launches (`rank_launches`) and the peak device
+    memory (`rank_peak_bytes`, None on the CPU) of that frequency.
     """
     dev = resolve_device(device)
-    if mesh_devices:
-        raise NotImplementedError(
-            "mesh_devices belongs to the distributed slice of the port "
-            "(queue 1 item 16), which is not ported yet")
+    if mesh_devices and precond == "recompute":
+        raise ValueError("precond='recompute' is the single-chip capacity "
+                         "path; the distributed path shards stored factors")
     if stencil not in ("5pt", "9pt"):
         raise ValueError(f"unknown stencil {stencil!r}")
     nine = stencil == "9pt"
@@ -830,6 +837,37 @@ def run_multisolve(n: int, b: int, wave_nums, consts=None,
         stencil=stencil, stencil_gamma=stencil_gamma,
         mesh_devices=mesh_devices, precision=precision,
         precond_refine=precond_refine)
+    if freq_anchor_every > 1:
+        if precond != "moving_pml":
+            raise ValueError("freq_anchor_every amortizes STORED factor "
+                             "samples (precond='moving_pml')")
+        if not g_compress or factor_stride <= 1:
+            raise ValueError(
+                "freq_anchor_every > 1 requires g_compress=True and "
+                "factor_stride > 1 (anchor stacks are kept as sample "
+                "panels)")
+        if len(set(map(float, consts))) != 1:
+            raise ValueError(
+                "freq_anchor_every > 1 requires a single const: C shapes "
+                "the subgrid PML, so mixed-C anchor stacks would lerp "
+                "different operators")
+    if mesh_devices:
+        from .dist.launch import run_ranks
+        from .dist.partition import LayerMesh, check_band
+
+        check_band(n, b, LayerMesh(int(mesh_devices), 0, dev))
+        return run_ranks(
+            _multisolve_on_ranks, int(mesh_devices), device=dev,
+            job=dict(n=n, b=b, wave_nums=[float(w) for w in wave_nums],
+                     consts=[float(C) for C in consts], alpha=alpha,
+                     problem=problem, r1s=r1s, r2s=r2s, rtol=rtol,
+                     restart=restart, maxiter=maxiter, fidelity=fidelity,
+                     setup_chunk=setup_chunk, g_dtype=g_dtype,
+                     factor_stride=factor_stride, g_compress=g_compress,
+                     freq_anchor_every=freq_anchor_every, stencil=stencil,
+                     stencil_gamma=stencil_gamma, precision=precision,
+                     precond_refine=precond_refine, cdtype=cdtype,
+                     key_cfg=key_cfg))
     common = dict(n=n, n_sources=n_sources, cdtype=cdtype, g_dtype=g_dtype)
     stage = dict(n=n, b=b, problem=problem, fidelity=fidelity, cdtype=cdtype,
                  device=dev)
@@ -874,25 +912,26 @@ def run_multisolve(n: int, b: int, wave_nums, consts=None,
         return _assemble_a_stage(wn, C, alpha, **stage)[0]
 
     if freq_anchor_every > 1:
-        if precond != "moving_pml":
-            raise ValueError("freq_anchor_every amortizes STORED factor "
-                             "samples (precond='moving_pml')")
-        if not g_compress or factor_stride <= 1:
-            raise ValueError(
-                "freq_anchor_every > 1 requires g_compress=True and "
-                "factor_stride > 1 (anchor stacks are kept as sample "
-                "panels)")
-        if len(set(map(float, consts))) != 1:
-            raise ValueError(
-                "freq_anchor_every > 1 requires a single const: C shapes "
-                "the subgrid PML, so mixed-C anchor stacks would lerp "
-                "different operators")
+        def solve_and_record(wn, A, P, t0, t1):
+            F = sources_at(wn, consts[0])
+            with phase("solve"):
+                res = _msolve_stage(A, P, F, rtol, **solve)
+            _sync(dev)
+            t2 = time.perf_counter()
+            return _multisolve_record(
+                key_cfg, A, P, res, F, wave_num=wn, const=consts[0], t0=t0,
+                t1=t1, t2=t2, g_compress=True, **common)
+
+        def lerp_at(wn, P_p, P_a, tau):
+            A_i = assemble_at(wn, consts[0])
+            return A_i, _precond_from_samples_stage(
+                A_i, P_p, P_a, tau, b=b, g_stride=factor_stride)
+
         return _run_multisolve_amortized(
-            [float(w) for w in wave_nums], float(consts[0]), sources_at,
-            factor_at, assemble_at, rtol=rtol, b=b,
-            factor_stride=factor_stride,
-            freq_anchor_every=freq_anchor_every, key_cfg=key_cfg,
-            common=common, solve=solve)
+            [float(w) for w in wave_nums],
+            lambda wn: factor_at(wn, consts[0], True), lerp_at,
+            solve_and_record, freq_anchor_every=freq_anchor_every,
+            sync=lambda: _sync(dev))
 
     records = []
     A = P = res = None
@@ -916,65 +955,201 @@ def run_multisolve(n: int, b: int, wave_nums, consts=None,
     return records
 
 
-def _run_multisolve_amortized(wave_nums, const, sources_at, factor_at,
-                              assemble_at, *, rtol, b, factor_stride,
-                              freq_anchor_every, key_cfg, common, solve):
+def _run_multisolve_amortized(wave_nums, factor_at, lerp_at,
+                              solve_and_record, *, freq_anchor_every, sync):
     """Amortized multi-frequency sweep (`run_multisolve`
     freq_anchor_every): factor anchors, omega-lerp the compressed sample
-    stacks in between.  `sources_at(wn, C)`, `factor_at(wn, C, compress)`
-    and `assemble_at(wn, C)` are `run_multisolve`'s stages for its stencil.
+    stacks in between.  `factor_at(wn)` gives an anchor's (A, P),
+    `lerp_at(wn, P_p, P_a, tau)` an intermediate frequency's (A, P) from
+    its bracketing anchors, and `solve_and_record(wn, A, P, t0, t1)` solves
+    one frequency and returns its record; `sync()` waits for the device
+    (and the ranks).  The single-card and the distributed sweeps pass their
+    own.
 
     Frequencies are processed in ascending-omega order span by span; at
     most two anchor sample stacks (plus one lerped stack) are resident,
     ~3/stride of one dense G stack.  Records are returned in the caller's
-    `wave_nums` order."""
-    dev = solve["device"]
+    `wave_nums` order, each with `setup_mode`."""
     K = len(wave_nums)
     order = sorted(range(K), key=lambda i: wave_nums[i])
     anchor_pos = sorted({p for p in range(0, K, freq_anchor_every)}
                         | {K - 1})
     records: dict[int, dict] = {}
 
-    def solve_and_record(idx, A, P, t0, t1, mode):
-        wn = wave_nums[idx]
-        F = sources_at(wn, const)
-        with phase("solve"):
-            res = _msolve_stage(A, P, F, rtol, **solve)
-        _sync(dev)
-        t2 = time.perf_counter()
-        records[idx] = {**_multisolve_record(
-            key_cfg, A, P, res, F, wave_num=wn, const=const, t0=t0, t1=t1,
-            t2=t2, g_compress=True, **common), "setup_mode": mode}
+    def timed(idx, make, mode):
+        sync()
+        t0 = time.perf_counter()
+        A, P = make()
+        sync()
+        t1 = time.perf_counter()
+        records[idx] = {**solve_and_record(wave_nums[idx], A, P, t0, t1),
+                        "setup_mode": mode}
+        return P
 
     prev = None                       # (sorted position, wn, anchor P)
     for a in anchor_pos:
         idx_a = order[a]
         wn_a = wave_nums[idx_a]
-        _sync(dev)
-        t0 = time.perf_counter()
-        A_a, P_a = factor_at(wn_a, const, True)
-        _sync(dev)
-        t1 = time.perf_counter()
-        solve_and_record(idx_a, A_a, P_a, t0, t1, "factor")
-        del A_a                       # free before the span
+        P_a = timed(idx_a, lambda: factor_at(wn_a), "factor")
         if prev is not None:
             pos_p, wn_p, P_p = prev
             for p in range(pos_p + 1, a):
                 idx = order[p]
                 wn_i = wave_nums[idx]
                 tau = (wn_i - wn_p) / max(wn_a - wn_p, 1e-30)
-                _sync(dev)
-                t0 = time.perf_counter()
-                A_i = assemble_at(wn_i, const)
-                P_i = _precond_from_samples_stage(
-                    A_i, P_p, P_a, tau, b=b, g_stride=factor_stride)
-                _sync(dev)
-                t1 = time.perf_counter()
-                solve_and_record(idx, A_i, P_i, t0, t1, "omega_lerp")
-                del A_i, P_i
+                timed(idx, lambda: lerp_at(wn_i, P_p, P_a, tau),
+                      "omega_lerp")
             del P_p                   # span done, drop the anchor
         prev = (a, wn_a, P_a)
     return [records[i] for i in range(K)]
+
+
+def _launch_counts() -> dict:
+    """This process's kernel launch counters and the distributed path's own
+    counts, for differences around one frequency."""
+    from .dist import spmv as dist_spmv
+    from .dist import sweep as dist_sweep
+    from .ops.kernels import gj_inverse, spmv_stencil, sweep
+
+    return {"stencil_matvec": spmv_stencil.launches,
+            "sweep": sweep.launches, "gj_inverse": gj_inverse.launches,
+            "sweep_variants": dict(sweep.launches_by_variant),
+            "band_products": dist_spmv.band_products,
+            "apply_chunks": dist_sweep.apply_chunks}
+
+
+def _counts_since(before: dict) -> dict:
+    now = _launch_counts()
+    out = {k: now[k] - before[k] for k in now if k != "sweep_variants"}
+    out["sweep_variants"] = {
+        ",".join(map(str, k)): c - before["sweep_variants"].get(k, 0)
+        for k, c in now["sweep_variants"].items()
+        if c != before["sweep_variants"].get(k, 0)}
+    return out
+
+
+@torch.no_grad()
+def _multisolve_on_ranks(device, job: dict) -> list:
+    """`run_multisolve(mesh_devices=D)` on one rank (`dist.launch`): the
+    frequency loop over this rank's band, with records on every rank (rank
+    0's are returned).  `job` holds run_multisolve's normalized arguments."""
+    from .dist import comm
+    from .dist.factor import (distributed_assemble, distributed_assemble9,
+                              distributed_setup, distributed_setup9)
+    from .dist.launch import local_ranks, ranks_per_card
+    from .dist.partition import make_mesh
+    from .dist.solve import band_true_residuals, distributed_solve
+
+    j = job
+    n, b, K = j["n"], j["b"], len(j["r1s"])
+    nine = j["stencil"] == "9pt"
+    mesh = make_mesh(j["key_cfg"]["mesh_devices"], device=device)
+    dev = mesh.device
+    n_loc, j0 = mesh.band(n)
+    _set_full_float32()
+    cd = j["cdtype"]
+    common = dict(fidelity=j["fidelity"], complex_dtype=cd)
+    setup = dict(g_dtype=j["g_dtype"], setup_chunk=j["setup_chunk"],
+                 factor_stride=j["factor_stride"], **common)
+    if nine:
+        setup["gamma"] = common["gamma"] = j["stencil_gamma"]
+
+    def sync():
+        _sync(dev)
+        comm.barrier(mesh)
+
+    def sources_at(wn, C):
+        F = _sources_stage(wn, j["alpha"], j["r1s"], j["r2s"], n=n,
+                           problem=j["problem"], cdtype=cd, device=dev)
+        if nine:
+            F = _mass_filter9_stage(F, wn, C, j["alpha"], n=n, b=b)
+        return F[:, j0:j0 + n_loc].contiguous()
+
+    def factor_at(wn, C, compress):
+        fn = distributed_setup9 if nine else distributed_setup
+        with phase("assemble"), phase("factor"):
+            A, S, _ = fn(mesh, n, b, wn, C, j["alpha"], j["problem"],
+                         g_compress=compress, **setup)
+        return A, S
+
+    def lerp_at(wn, S_p, S_a, tau):
+        if nine:
+            A, S0, _ = distributed_assemble9(
+                mesh, n, b, wn, j["consts"][0], j["alpha"], j["problem"],
+                g_dtype=j["g_dtype"], **common)
+        else:
+            A, S0, _ = distributed_assemble(
+                mesh, n, b, wn, j["consts"][0], j["alpha"], j["problem"],
+                **common)
+        G_re, G_im = _omega_lerp_pair(S_p.G_re, S_p.G_im, S_a.G_re,
+                                      S_a.G_im, tau)
+        return A, dataclasses.replace(S0, G_re=G_re, G_im=G_im, g_w=S_a.g_w,
+                                      g_lo=S_a.g_lo, g_stride=S_a.g_stride)
+
+    def solve_and_record(wn, C, A, S, t0, t1, before):
+        F = sources_at(wn, C)
+        with phase("solve"):
+            res = distributed_solve(
+                mesh, A, S, F, rtol=j["rtol"], restart=j["restart"],
+                maxiter=j["maxiter"], precision=j["precision"],
+                precond_refine=j["precond_refine"])
+        sync()
+        t2 = time.perf_counter()
+        true_res = band_true_residuals(mesh, A, res.x.reshape(K, n_loc, n),
+                                       F)
+        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                else None)
+        ranks = comm.all_gather_object(mesh, (_counts_since(before), peak))
+        return {
+            **j["key_cfg"], "wave_num": float(wn), "const": float(C),
+            "iterations": np.asarray(res.iterations).tolist(),
+            "converged": np.asarray(res.converged).tolist(),
+            "true_residuals": true_res,
+            "init_time_s": t1 - t0, "solve_time_s": t2 - t1,
+            "compiled": False, "dtype": str(cd).replace("torch.", ""),
+            "g_dtype": j["g_dtype"],
+            "per_device_g_bytes": int(S.G_re.numel() * S.G_re.element_size()
+                                      * 2),
+            "dist_backend": mesh.backend or "none",
+            "ranks_per_card": ranks_per_card(dev, local_ranks(mesh.size)),
+            "rank_launches": [c for c, _ in ranks],
+            "rank_peak_bytes": [p for _, p in ranks],
+        }
+
+    def begin():
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        return _launch_counts()
+
+    if j["freq_anchor_every"] > 1:
+        C = j["consts"][0]
+        state = {}
+
+        def factor_one(wn):
+            state["before"] = begin()
+            return factor_at(wn, C, True)
+
+        def lerp_one(wn, S_p, S_a, tau):
+            state["before"] = begin()
+            return lerp_at(wn, S_p, S_a, tau)
+
+        return _run_multisolve_amortized(
+            j["wave_nums"], factor_one, lerp_one,
+            lambda wn, A, S, t0, t1: solve_and_record(
+                wn, C, A, S, t0, t1, state["before"]),
+            freq_anchor_every=j["freq_anchor_every"], sync=sync)
+
+    records = []
+    for wn, C in zip(j["wave_nums"], j["consts"]):
+        A = S = None  # noqa: F841
+        before = begin()
+        sync()
+        t0 = time.perf_counter()
+        A, S = factor_at(wn, C, j["g_compress"])
+        sync()
+        t1 = time.perf_counter()
+        records.append(solve_and_record(wn, C, A, S, t0, t1, before))
+    return records
 
 
 @torch.no_grad()

@@ -192,6 +192,39 @@ def _check_args(G_re, G_im, u, c, carry0, mode, g_lo, g_w):
     return S, R, n, shared, False
 
 
+def _panels_matvec(G_re, G_im, panels, v, w=None) -> torch.Tensor:
+    """(R, n) rows v times the complex panel G[panels[0]], or with float
+    weights w (2,) the lerp w[0] G[p0] + w[1] G[p1] applied as the weighted
+    sum of the two panels' products.  The stored planes are widened to v's
+    float type and multiplied at full precision."""
+    R, n = v.shape
+    rd = v.real.dtype
+    V = torch.cat([v.real, v.imag]).T                      # (n, 2R)
+    prods = [(G_re[p, :, :n].to(rd) @ V, G_im[p, :, :n].to(rd) @ V)
+             for p in panels]
+    if w is None:
+        RV, IV = prods[0]
+    else:
+        RV = w[0] * prods[0][0] + w[1] * prods[1][0]
+        IV = w[0] * prods[0][1] + w[1] * prods[1][1]
+    return torch.complex(RV[:, :R] - IV[:, R:], RV[:, R:] + IV[:, :R]).T
+
+
+def panel_matvec(G_re, G_im, k: int, v, *, g_lo=None,
+                 g_w=None) -> torch.Tensor:
+    """One step's product G_k v for (R, n) rows v, outside the kernel:
+    panel k, or with the lerp tables the weighted pair of samples
+    g_lo[k], g_lo[k] + 1.  The rounding is the plain sweep's, which the
+    kernel matches: planes widened to v's float type, float32 weights
+    widened likewise and applied to the two panels' products.  The
+    distributed sweep takes the carry across a band seam with it."""
+    if g_lo is None:
+        return _panels_matvec(G_re, G_im, (k,), v)
+    lo = int(g_lo[k])
+    return _panels_matvec(G_re, G_im, (lo, lo + 1), v,
+                          g_w[k].to(v.real.dtype))
+
+
 def plain_sweep(G_re, G_im, u, c, carry0, *, mode: str, g_lo=None,
                 g_w=None) -> torch.Tensor:
     """The recursion as a Python loop of dense products: the plain version
@@ -203,28 +236,18 @@ def plain_sweep(G_re, G_im, u, c, carry0, *, mode: str, g_lo=None,
     sup[n-1]."""
     S, R, n, shared, lerp = _check_args(G_re, G_im, u, c, carry0, mode,
                                         g_lo, g_w)
-    rd = u.real.dtype
     batched = u.ndim == 3
     tri = c.ndim == 3
     U = u if batched else u[:, None]
     out = torch.empty_like(U)
     if lerp:
         lo = g_lo[:S].tolist()
-        w = g_w[:S].to(rd)
-
-    def planes_dot(p, V):
-        return G_re[p, :, :n].to(rd) @ V, G_im[p, :, :n].to(rd) @ V
-
-    def g_matvec(k, v):
-        V = torch.cat([v.real, v.imag]).T                  # (n, 2R)
-        if lerp:
-            RV0, IV0 = planes_dot(lo[k], V)
-            RV1, IV1 = planes_dot(lo[k] + 1, V)
-            RV = w[k, 0] * RV0 + w[k, 1] * RV1
-            IV = w[k, 0] * IV0 + w[k, 1] * IV1
-        else:
-            RV, IV = planes_dot(0 if shared else k, V)
-        return torch.complex(RV[:, :R] - IV[:, R:], RV[:, R:] + IV[:, :R]).T
+        w = g_w[:S].to(u.real.dtype)
+        g_matvec = lambda k, v: _panels_matvec(G_re, G_im, (lo[k], lo[k] + 1),
+                                               v, w[k])
+    else:
+        g_matvec = lambda k, v: _panels_matvec(G_re, G_im,
+                                               (0 if shared else k,), v)
 
     def couple(ck, v):
         """c[k] applied to the (R, n) rows v."""

@@ -18,7 +18,12 @@ and stagnation guard.  A member's iterations, flags, history and x do not
 depend on who else is in the batch (up to the rounding of the batched
 products).  `gmres` is that loop on a batch of one.
 
-The distributed variant (all-reduced inner products) is not ported yet.
+The distributed path (`dist.solve`) runs the same loop on each rank's
+band of the vectors: `allreduce` (the identity by default) sums the
+Gram-Schmidt coefficients and the squared norms over the ranks before they
+are used, so every host decision (convergence, happy breakdown, restart,
+stagnation) is taken on the same all-reduced values on every rank: the
+counterpart of the JAX solver's `axis_name` and `psum`.
 """
 from __future__ import annotations
 
@@ -66,19 +71,29 @@ def _givens(a, b):
     return c, s, r
 
 
-def _norms(V: torch.Tensor, np_r) -> np.ndarray:
+def _sq_norms(V: torch.Tensor, allreduce=None) -> torch.Tensor:
+    """Squared row norms of a (k, N) complex batch, summed over the ranks
+    by `allreduce` when given."""
+    sq = torch.sum(V.real ** 2 + V.imag ** 2, dim=-1)
+    return sq if allreduce is None else allreduce(sq)
+
+
+def _norms(V: torch.Tensor, np_r, allreduce=None) -> np.ndarray:
     """Row norms of a (k, N) complex batch, on the host (one read)."""
-    return torch.sqrt(torch.sum(V.real ** 2 + V.imag ** 2, dim=-1)) \
+    return torch.sqrt(_sq_norms(V, allreduce)) \
         .cpu().numpy().astype(np_r, copy=False)
 
 
-def arnoldi_step(Vj: torch.Tensor, w: torch.Tensor):
+def arnoldi_step(Vj: torch.Tensor, w: torch.Tensor, allreduce=None):
     """Orthogonalize w against the basis rows Vj (j+1, N): classical
     Gram-Schmidt against the whole basis, plus one re-orthogonalization pass
-    for fp32 robustness.  Returns (w, h) with h the (j+1,) coefficients."""
-    h = Vj.conj() @ w
+    for fp32 robustness.  Returns (w, h) with h the (j+1,) coefficients;
+    `allreduce` sums each pass's coefficients over the ranks before they
+    are used."""
+    red = allreduce or (lambda t: t)
+    h = red(Vj.conj() @ w)
     w = w - h @ Vj
-    h2 = Vj.conj() @ w
+    h2 = red(Vj.conj() @ w)
     w = w - h2 @ Vj
     return w, h + h2
 
@@ -143,6 +158,7 @@ def gmres_batched(matvec: Callable, B: torch.Tensor, *,
                   atol: float = 0.0,
                   maxiter: int = 1000,
                   iter_cap=None,
+                  allreduce: Optional[Callable] = None,
                   device="cuda") -> KrylovResult:
     """Left-preconditioned restarted GMRES on a batch B (K, N) in lockstep.
 
@@ -152,6 +168,9 @@ def gmres_batched(matvec: Callable, B: torch.Tensor, *,
     handle for callers with a shared budget): one cap for all members or an
     array of K caps.  The inner loop respects it too, so a count never
     exceeds its cap.
+
+    `allreduce` maps a tensor to its sum over the ranks (`dist.comm`), for
+    B holding each rank's band of the vectors; None on one device.
     """
     dev = resolve_device(device)
     if B.device.type != dev.type:
@@ -166,7 +185,7 @@ def gmres_batched(matvec: Callable, B: torch.Tensor, *,
     rt = np_r.type
 
     Mb = M(B)
-    bnorm = _norms(Mb, np_r)
+    bnorm = _norms(Mb, np_r, allreduce)
     tol = np.maximum(rt(rtol) * bnorm, rt(atol))
     n_outer = -(-maxiter // restart)
     history = np.full((K, n_outer * restart), np.nan, np_r)
@@ -183,7 +202,7 @@ def gmres_batched(matvec: Callable, B: torch.Tensor, *,
     else:
         X = x0.clone()
         Rv = M(B - matvec(X))
-        beta = _norms(Rv, np_r)
+        beta = _norms(Rv, np_r, allreduce)
         Rv = list(Rv)
 
     iters = np.zeros((K,), np.int64)
@@ -220,9 +239,9 @@ def gmres_batched(matvec: Callable, B: torch.Tensor, *,
             W = M(matvec(V[rows, j]))
             hs = []
             for q, (p, _) in enumerate(inner):
-                W[q], h = arnoldi_step(V[p, :j + 1], W[q])
+                W[q], h = arnoldi_step(V[p, :j + 1], W[q], allreduce)
                 hs.append(h)
-            hnorms = torch.sqrt(torch.sum(W.real ** 2 + W.imag ** 2, dim=-1))
+            hnorms = torch.sqrt(_sq_norms(W, allreduce))
             # one host read per step: the members' columns and norms
             host = torch.cat([torch.stack(hs), hnorms.to(dtype)[:, None]],
                              dim=1).cpu().numpy()
@@ -251,7 +270,7 @@ def gmres_batched(matvec: Callable, B: torch.Tensor, *,
         # The recomputed residual vector is carried into the next cycle, so
         # the trustworthy stopping test costs nothing extra.
         Rv_act = M(B[act] - matvec(X[act]))
-        res_true = _norms(Rv_act, np_r)
+        res_true = _norms(Rv_act, np_r, allreduce)
         for p, i in enumerate(act):
             Rv[i] = Rv_act[p]
             k = lsq[i].k

@@ -47,6 +47,7 @@ def ir_gmres_batched(matvec: Callable, matvec_hi: Callable, B: torch.Tensor,
                      maxiter: int = 200,
                      inner_rtol: float = 1e-2,
                      max_outer: int = 12,
+                     allreduce: Optional[Callable] = None,
                      device="cuda") -> KrylovResult:
     """Solve A X = B (K, N) to rtol (legacy preconditioned semantics) with
     working-precision inner solves, the members in lockstep.
@@ -57,6 +58,8 @@ def ir_gmres_batched(matvec: Callable, matvec_hi: Callable, B: torch.Tensor,
     inner_rtol : per-cycle residual reduction requested from the inner
                  GMRES (each cycle re-scales, so the overall floor is set by
                  the complex128 residual).
+    allreduce  : sum over the ranks for B holding each rank's band
+                 (`solve.gmres.gmres_batched`); None on one device.
 
     Per member: `iterations` counts all inner iterations, `history` is the
     concatenated per-inner-iteration preconditioned residual history
@@ -74,7 +77,7 @@ def ir_gmres_batched(matvec: Callable, matvec_hi: Callable, B: torch.Tensor,
                               torch.complex128: np.complex128}[dtype])).dtype
     rt = np_r.type
 
-    bnorm = _norms(M(B), np_r)
+    bnorm = _norms(M(B), np_r, allreduce)
     tol = np.maximum(rt(rtol) * bnorm, rt(atol))
     # per-cycle inner budget: full maxiter (the outer loop stops on iters)
     inner_hist = -(-maxiter // restart) * restart
@@ -97,7 +100,8 @@ def ir_gmres_batched(matvec: Callable, matvec_hi: Callable, B: torch.Tensor,
         # so total reported iterations never exceed maxiter
         inner = gmres_batched(matvec, R[act], M=M, restart=restart,
                               rtol=inner_rtol, atol=0.0, maxiter=maxiter,
-                              iter_cap=maxiter - iters[act], device=device)
+                              iter_cap=maxiter - iters[act],
+                              allreduce=allreduce, device=device)
         X[act] += inner.x.to(hi)
         for p, i in enumerate(act):
             history[i, iters[i]:iters[i] + inner_hist] = inner.history[p]
@@ -105,7 +109,7 @@ def ir_gmres_batched(matvec: Callable, matvec_hi: Callable, B: torch.Tensor,
         # trustworthy below the float32 floor
         R_act = (B_hi[act] - matvec_hi(X[act])).to(dtype)
         R[act] = R_act
-        res_new = _norms(M(R_act), np_r)
+        res_new = _norms(M(R_act), np_r, allreduce)
         for p, i in enumerate(act):
             done[i] = res_new[p] <= tol[i]
             stalled[i] = (not done[i]) and bool(

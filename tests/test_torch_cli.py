@@ -123,12 +123,23 @@ def test_plan9_matches_measured_flagship():
 
 
 @pytest.mark.parametrize("argv", (
-    ["bench-scaling"],
-    ["multisolve", "--device", "cpu", "--n", "31", "--b", "8", "--mesh",
-     "4"]))
-def test_distributed_commands_name_item_16(argv):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        cli(argv)
+    ["bench-scaling", "--device", "cpu", "--n", "32", "--b", "3",
+     "--ndevs", "2"],
+    ["multisolve", "--device", "cpu", "--n", "32", "--b", "3", "--freqs",
+     "2.0", "--consts", "20", "--multi-rhs", "2", "--mesh", "4"]))
+def test_distributed_commands_name_item_16(argv, capsys):
+    """The distributed path's commands (once stubs that raised)
+    run: `bench-scaling` prints its record, labelled as CPU ranks that are
+    no scaling numbers; `multisolve --mesh 4` its converged records."""
+    assert cli(argv) == 0
+    out = capsys.readouterr().out
+    if argv[0] == "bench-scaling":
+        rep = json.loads(out)
+        assert rep["backend"] == "cpu-gloo" and not rep["scaling_numbers"]
+        assert [r["n_devices"] for r in rep["strong"]] == [2]
+    else:
+        rec = json.loads(out.strip().splitlines()[-1])
+        assert rec["mesh_devices"] == 4 and all(rec["converged"])
 
 
 @pytest.mark.parametrize("argv", (

@@ -541,9 +541,10 @@ def test_omega_lerp_pair_is_float32_like_the_reference():
 
 def test_run_multisolve_guards():
     """The amortized path refuses what it cannot honor, with the
-    reference's key words; the distributed option raises by name, and the
-    recompute preconditioner refuses the 9-point stencil and amortization
-    as the JAX package does."""
+    reference's key words; the distributed option refuses a grid that does
+    not split into bands holding the F rows on rank 0, and runs otherwise;
+    the recompute preconditioner refuses the 9-point stencil and
+    amortization as the JAX package does."""
     run = lambda *a, **k: tdriver.run_multisolve(*a, device="cpu", **k)
     with pytest.raises(ValueError, match="g_compress"):
         run(31, 5, [2.0, 2.1], consts=[20.0], freq_anchor_every=2,
@@ -556,10 +557,15 @@ def test_run_multisolve_guards():
             factor_stride=4, g_compress=True)
     with pytest.raises(ValueError, match="2 consts for 3"):
         run(31, 5, [2.0, 2.1, 2.2], consts=[20.0, 21.0])
-    for kw, name in ((dict(mesh_devices=4), "distributed"),
-                     (dict(mesh_devices=4, stencil="9pt"), "item 16")):
-        with pytest.raises(NotImplementedError, match=name):
-            run(31, 5, [2.0], **kw)
+    # the distributed path: its own refusals, then one run on four ranks
+    # whose records carry the mesh
+    with pytest.raises(ValueError, match="not divisible by 4"):
+        run(31, 5, [2.0], mesh_devices=4)
+    with pytest.raises(ValueError, match="rows-per-device"):
+        run(32, 8, [2.0], mesh_devices=4)
+    [rec] = run(32, 5, [2.0], consts=[20.0], mesh_devices=4)
+    assert rec["mesh_devices"] == 4 and rec["converged"] == [True]
+    assert rec["dist_backend"] == "gloo" and rec["per_device_g_bytes"] > 0
     with pytest.raises(ValueError, match="5-point-path feature"):
         run(31, 5, [2.0], precond="recompute", stencil="9pt")
     with pytest.raises(ValueError, match="STORED"):

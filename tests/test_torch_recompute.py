@@ -144,7 +144,7 @@ def test_multisolve_recompute_and_guards():
     with pytest.raises(ValueError, match="5-point-path feature"):
         ht.run_multisolve(31, 5, [2.0], precond="recompute", stencil="9pt",
                           **kw)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="single-chip capacity path"):
         ht.run_multisolve(31, 5, [2.0], precond="recompute", mesh_devices=2,
                           **kw)
     with pytest.raises(ValueError, match="supports precond='moving_pml'"):
