@@ -75,6 +75,23 @@ and NINEPOINT.jsonl records), the study and the command line:
                 subprocess (and the same arguments in this process, counted),
                 and `plan --n 2047 --stencil 9pt`;
 
+then the reference's other three problems (c1 / c2 media, f1 / f2
+sources; the count limits from the complex128 oracle rows of
+ORACLE_PROBLEMS.jsonl), a batch wider than one sweep launch, and n = 2047:
+
+  problems      run_solver at the main configuration for c1_f2 (stride 7)
+                and for c2_f1 and c2_f2, whose row-invariant media factor
+                ONE subgrid and sweep its one shared panel (`dedup_hm`);
+  cli_sweep     `sweep --problem c2_f2 --ns 127 255 511 1023` through
+                `cli.main`: the reference's experiment harness;
+  wide_batch    run_multisolve, eight sources of c1_f2 over compressed G:
+                every sweep in launches of four, the eight members against
+                the same sources solved as two batches of four;
+  flagship_problems  run_solver at n = 2047 for c2_f1 (one shared 2047^2
+                panel) and c1_f2 (compressed, stride 8);
+  flagship_amortized  MULTISOLVE_AMORTIZED_n2047.jsonl's run: four
+                frequencies, four sources, stride 16, an anchor every third;
+
 then the distributed path (`helmholtz_tpu_torch.dist`): four ranks, one
 process each, sharing the one card under gloo (NCCL refuses two ranks on
 one GPU; the rows and sums they exchange are staged through host memory),
@@ -110,8 +127,8 @@ read-only and streaming memory rates, float32 matrix-product rate) and
 prints them on a line of their own; every kernel's bound is stated against
 the card's published peaks, with the bound at the measured peaks beside
 it.  The sweep kernel is also held against its plain version at n = 2047
-(`k2_2047`: dense G with one stage of G in shared memory, sample-compressed
-G with none), each variant's launch plan printed.  K4 is also timed for
+(`k2_2047`: dense G and one shared panel with one stage of G in shared
+memory, sample-compressed G with none), each variant's launch plan printed.  K4 is also timed for
 its device work alone and its host cost, beside the library call's, and
 two calls on the same inputs must give equal bits;
 then every kernel instance its C entry point dispatches runs once, on a
@@ -163,6 +180,7 @@ from helmholtz_tpu_torch.ops.kernels import spmv_stencil as k1
 from helmholtz_tpu_torch.ops.kernels import sweep as k2
 from helmholtz_tpu_torch.ops.sparse_algebra import stencil_to_bsr
 from helmholtz_tpu_torch.precond import recompute, sweeping, sweeping9
+from helmholtz_tpu_torch.scripts import oracle_problems
 from helmholtz_tpu_torch.solve.batched import solve_multi_rhs
 from helmholtz_tpu_torch.solve.resumable import resumable_gmres
 from helmholtz_tpu_torch.utils import checkpoint, profiling
@@ -279,6 +297,41 @@ ACCURACY_WAVE_NUM = 8.0
 CLI_SOLVE = ["solve", "--n", "127", "--wave-num", "16", "--const", "81"]
 MAX_ITERS_CLI = 3
 PLAN_RATIO = 1.05             # measured peak against the planner's, at most
+# The reference's other three problems (c1 the Gaussian medium, c2 the
+# medium that varies along the rows only; f1 the point source, f2 the
+# directed beam) at the main configuration: c1_f2 at the auto stride 7, the
+# row-invariant c2 media on their own path (`dedup_hm`: ONE factored
+# subgrid, one shared panel in every sweep).  Limits: the complex128 scipy
+# oracle's count for that problem and n (ORACLE_PROBLEMS.jsonl) + 1.
+PROBLEMS = ("c1_f2", "c2_f1", "c2_f2")
+ROW_INVARIANT = ("c2_f1", "c2_f2")
+ORACLE_PROBLEMS = "ORACLE_PROBLEMS.jsonl"
+# the reference's experiment harness on the card: the command line's sweep
+# over n = 127 ... 1023 (omega/2pi = (n+1)/8, the reference's C for each n)
+CLI_SWEEP_NS = (127, 255, 511, 1023)
+CLI_SWEEP = ["sweep", "--problem", "c2_f2", "--ns",
+             *map(str, CLI_SWEEP_NS)]
+# more right-hand sides than one sweep launch carries (k2.MAX_WIDTH = 4):
+# eight sources of c1_f2 over compressed G, each sweep in chunks of 4 + 4
+WIDE = dict(wave_nums=[128.0], consts=[100.0], n_sources=8, rtol=1e-3,
+            problem="c1_f2", g_dtype="bf16", factor_stride=LERP_STRIDE,
+            g_compress=True)
+WIDE_X_TOL = 1e-5             # the eight members against two batches of 4
+# n = 2047 for the other problems: c2_f1 over one shared 2047^2 panel, c1_f2
+# over compressed G at stride 8.  The scipy oracle does not fit a host at
+# n = 2047; c2_f1's limit is the port's own complex128 CPU count + 1
+# (PORT_REFERENCE_n2047.jsonl, `scripts/oracle_problems.py --impl port`:
+# one factored subgrid), c1_f2's, with no reference count, c1_f1's
+PORT_REFERENCE = "PORT_REFERENCE_n2047.jsonl"
+FLAG_PROBLEMS = {"flagship_c2_f1": dict(FLAG, problem="c2_f1"),
+                 "flagship_c1_f2": dict(FLAG, problem="c1_f2")}
+# MULTISOLVE_AMORTIZED_n2047.jsonl: four frequencies, an anchor every third
+# (factor, omega_lerp, omega_lerp, factor), stride 16, four sources
+FLAG_AMORTIZED = dict(wave_nums=[255.0, 256.0, 257.0, 258.0], consts=[100.0],
+                      n_sources=4, rtol=1e-3, g_dtype="bf16",
+                      factor_stride=16, g_compress=True, freq_anchor_every=3)
+FLAG_AMORTIZED_ITERS = ([6, 7, 7, 6], [7, 7, 7, 7], [7, 7, 7, 6],
+                        [7, 7, 7, 7])
 # The distributed path: four ranks, one process each, sharing the one card
 # under gloo (NCCL refuses two ranks on one GPU); n = 1024 and 2048, the
 # multiples of 4 next to the single-card sizes, as the JAX package ran
@@ -314,9 +367,10 @@ DIST_PHASES = {
 # the paths whose sweeps run float32 G (the rest run bf16), those that run
 # the recompute preconditioner's chunk-sized sweeps, and those at n = 2047
 F32_PATHS = ("recompute", "recompute_multi", "checkpoint", "accuracy",
-             "cli_main")
+             "cli_main", "cli_sweep")
 CHUNK_PATHS = ("recompute", "recompute_multi")
-BIG_PATHS = ("flagship", "flagship_dense", "flagship_multi", "flagship9")
+BIG_PATHS = ("flagship", "flagship_dense", "flagship_multi", "flagship9",
+             *FLAG_PROBLEMS, "flagship_amortized")
 K4_WIDTHS = (1, 4, 16)       # columns of X on the n = 511 operator
 
 # Tolerances, relative to the largest entry of the plain version's result;
@@ -524,15 +578,23 @@ def random_g_bf16(Mg, n, gen, dev, chunk=64):
 def check_k2_2047(gen, dev, keep):
     """K2 at the flagship size against its plain version: dense bf16 G over
     all 2035 sweep rows (34.12 GB: a plane passes 2^31 elements), R = 1;
-    stride-8 bf16 samples with the compressed setup's tables, diagonal
-    coupling over 2035 rows and tridiagonal over the 9-point path's 1900,
-    R = 1 to 4.  Returns the variants' names and launch plans."""
+    one shared bf16 panel over 2035 rows, R = 1; stride-8 bf16 samples with
+    the compressed setup's tables, diagonal coupling over 2035 rows and
+    tridiagonal over the 9-point path's 1900, R = 1 to 4, and stride-16
+    samples (untimed), R = 1 to 4.  Returns the timed variants' names and
+    launch plans."""
     n = FLAG["n"]
     M, M9 = n - FLAG["b"], n - FLAG9["b"]
     recs = []
     G = random_g_bf16(M, n, gen, dev)
     for mode in ("fwd", "bwd"):
         recs.append(check_k2(*G, mode, gen, timed=True,
+                             library_step=(mode == "bwd")))
+    # one shared panel (c2_f1 at n = 2047): sixteen bf16 rows a block held
+    # in one stage of shared memory for the whole sweep
+    for mode in ("fwd", "bwd"):
+        recs.append(check_k2(*(g[:1].contiguous() for g in G), mode, gen,
+                             timed=True, rows=M,
                              library_step=(mode == "bwd")))
     del G
     torch.cuda.empty_cache()
@@ -546,7 +608,16 @@ def check_k2_2047(gen, dev, keep):
                                  tables=tables))
             recs.append(check_k2(*S9, mode, gen, timed=True, R=R,
                                  tables=tables9, tri=True))
-    del S, S9
+    # the amortized n = 2047 sweep's stride 16 (129 samples), untimed: the
+    # table keeps the stride-8 times of these variants
+    tables16 = lerp_tables(M, FLAG_AMORTIZED["factor_stride"], dev)
+    S16 = [g[:int(tables16[0].max()) + 2] for g in S]
+    for R in (None, 2, 3, 4):
+        for mode in ("fwd", "bwd"):
+            rec = check_k2(*S16, mode, gen, timed=False, R=R,
+                           tables=tables16)
+            say("kernel", stride=FLAG_AMORTIZED["factor_stride"], **rec)
+    del S, S9, S16
     torch.cuda.empty_cache()
     for rec in recs:
         keep(rec)
@@ -771,9 +842,9 @@ def check_k4_instances(gen, dev):
 
 # -- solves -------------------------------------------------------------------
 
-def variant_key(mode, width, lerp, tri=False):
+def variant_key(mode, width, lerp, tri=False, shared=False):
     return (f"{mode},R{width}{',lerp' if lerp else ''}"
-            f"{',tri' if tri else ''}")
+            f"{',tri' if tri else ''}{',shared' if shared else ''}")
 
 
 #: the device memory of each named counted run: its peak and what was
@@ -791,12 +862,14 @@ def counted(fn, name=None):
     base = torch.cuda.memory_allocated()
     out = fn()
     torch.cuda.synchronize()
-    # the sweep wrapper counts by (mode, width, lerp, tri); its totals by
-    # mode, by width and with lerp tables are sums over that one count
+    # the sweep wrapper counts by (mode, width, lerp, tri, shared); its
+    # totals by mode, by width, with lerp tables and over one shared panel
+    # are sums over that one count
     counts = {"stencil_matvec": k1.launches, "sweep": k2.launches,
               "gj_inverse": k3.launches, "bsr_matmat": k4.launches, **{
                   f"sweep_{m}": c for m, c in k2.launches_by_mode.items()},
               "sweep_lerp": k2.launches_lerp,
+              "sweep_shared": k2.launches_shared,
               "sweep_by_width": {str(w): c for w, c
                                  in k2.launches_by_width.items()},
               "sweep_variants": {variant_key(*k): c for k, c
@@ -846,13 +919,16 @@ def batched_launches(iteration_lists, lerp, restart=20, tri=False):
     inner step j one product per source still iterating and one apply of
     that width; then one product per source and one apply of the whole
     batch for the recomputed residuals.  An apply is one forward and one
-    backward sweep of its width."""
+    backward sweep of each chunk of at most k2.MAX_WIDTH right-hand sides
+    of its width."""
     products, variants = 0, {}
 
     def apply(width):
-        for mode in ("fwd", "bwd"):
-            key = variant_key(mode, width, lerp, tri)
-            variants[key] = variants.get(key, 0) + 1
+        for r0 in range(0, width, k2.MAX_WIDTH):
+            for mode in ("fwd", "bwd"):
+                key = variant_key(mode, min(k2.MAX_WIDTH, width - r0), lerp,
+                                  tri)
+                variants[key] = variants.get(key, 0) + 1
 
     for its in iteration_lists:
         if max(its) > restart:
@@ -906,7 +982,7 @@ def check_multisolve(name, cfg, recs, counts, peak, lerp, modes=None,
     if counts["sweep_lerp"] != (counts["sweep"] if lerp else 0):
         fail(f"{name}: {counts['sweep_lerp']} of {counts['sweep']} sweeps "
              "went through the lerp kernel")
-    top = variant_key("bwd", cfg["n_sources"], lerp, tri)
+    top = variant_key("bwd", min(cfg["n_sources"], k2.MAX_WIDTH), lerp, tri)
     if counts["sweep_variants"].get(top, 0) < 2:
         fail(f"{name}: the sweeps did not go through {top}")
     check_setup_launches(name, counts)
@@ -923,9 +999,11 @@ def check_setup_launches(name, counts):
 
 
 def check_solve(name, cfg, rep, counts, peak, max_iters, exact_iters=None,
-                residual_below=1e-3, applies_per_call=1, lerp=False):
+                residual_below=1e-3, applies_per_call=1, lerp=False,
+                shared=False):
     """`applies_per_call`: 2 when the preconditioner is refined once;
-    `lerp`: the sweeps run over sample-compressed G."""
+    `lerp`: the sweeps run over sample-compressed G; `shared`: over one
+    shared panel (a row-invariant medium's one factored subgrid)."""
     tri = cfg.get("stencil") == "9pt"
     exact = cfg.get("precond") == "exact"
     say(name, iterations=rep.iterations, converged=rep.converged,
@@ -956,7 +1034,7 @@ def check_solve(name, cfg, rep, counts, peak, max_iters, exact_iters=None,
         # the refinement loop restarts the inner solve; its launches are
         # bounded below, not counted exactly
         for mode in ("fwd", "bwd"):
-            key = variant_key(mode, 1, lerp, tri)
+            key = variant_key(mode, 1, lerp, tri, shared)
             if counts["sweep_variants"].get(key, 0) < \
                     applies_per_call * rep.iterations:
                 fail(f"{name}: sweep launches {counts['sweep_variants']}")
@@ -973,8 +1051,10 @@ def check_solve(name, cfg, rep, counts, peak, max_iters, exact_iters=None,
     if counts["sweep_bwd_sub"] != 0:
         fail(f"{name}: the corrected solve ran bwd_sub sweeps")
     wrong = [k for k in counts["sweep_variants"]
-             if k.endswith(",tri") != tri]
-    if wrong or counts["sweep_lerp"] != (counts["sweep"] if lerp else 0):
+             if ("tri" in k.split(",")) != tri
+             or ("shared" in k.split(",")) != shared]
+    if (wrong or counts["sweep_lerp"] != (counts["sweep"] if lerp else 0)
+            or counts["sweep_shared"] != (counts["sweep"] if shared else 0)):
         fail(f"{name}: sweeps through {counts['sweep_variants']}")
     check_setup_launches(name, counts)
 
@@ -1497,6 +1577,242 @@ def cli_phase(out_dir):
     return counts, out
 
 
+# -- the other problems, a wide batch, n = 2047 --------------------------------
+
+def oracle_problem_iters(problem, n, rtol=1e-3, impl="scipy"):
+    """The complex128 reference count for one problem at grid size n, as
+    `scripts/oracle_problems.py` wrote it: the scipy oracle's
+    (ORACLE_PROBLEMS.jsonl) or the port's own CPU solve's
+    (PORT_REFERENCE_n2047.jsonl)."""
+    want = f"{oracle_problems.metric(problem, n, impl)}_rtol{rtol:g}"
+    name = ORACLE_PROBLEMS if impl == "scipy" else PORT_REFERENCE
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), name)
+    with open(path) as fh:
+        row = next((r for r in map(json.loads, filter(str.strip, fh))
+                    if r["metric"] == want), None)
+    if row is None or row["info"] != 0:
+        fail(f"{name}: no converged row {want}: {row}")
+    return row["iters"]
+
+
+def problems_phase(paths, record):
+    """run_solver at the main configuration for c1_f2, c2_f1 and c2_f2:
+    c1_f2 over the stride-7 setup, each c2 medium over its one factored
+    subgrid (`dedup_hm`), whose one panel every sweep shares."""
+    for problem in PROBLEMS:
+        name = f"problem_{problem}"
+        cfg = dict(FULL, problem=problem)
+        shared = problem in ROW_INVARIANT
+        oracle = oracle_problem_iters(problem, cfg["n"])
+        rep, counts, peak = counted_solve(cfg, name)
+        check_solve(name, cfg, rep, counts, peak, max_iters=oracle + 1,
+                    shared=shared)
+        got = (rep.config["dedup_hm"], rep.config["factor_stride"])
+        if got != (shared, 1 if shared else LERP_STRIDE):
+            fail(f"{name}: dedup_hm and stride {got}")
+        paths[name] = counts
+        record[name] = {**rep.metrics(), "oracle_iters": oracle}
+        record[f"{name}_peak_bytes"] = peak
+        del rep
+        torch.cuda.empty_cache()
+
+
+def cli_sweep_phase(out_dir):
+    """The command line's `sweep`, the reference's experiment harness, on
+    c2_f2 over n = 127 ... 1023 through `cli.main` in this process: exit 0;
+    every solve converged, on the card, over one shared float32 panel, with
+    the launches its count implies; at n = 511 and 1023 at most the
+    oracle's count + 1."""
+    metrics = os.path.join(out_dir, "cli_sweep.jsonl")
+    if os.path.exists(metrics):
+        os.remove(metrics)
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc, counts, peak = counted(
+            lambda: cli.main(CLI_SWEEP + ["--metrics", metrics]),
+            "cli_sweep")
+    with open(metrics) as fh:
+        recs = [json.loads(line) for line in fh if line.strip()]
+    if rc != 0 or [r["n"] for r in recs] != list(CLI_SWEEP_NS):
+        fail(f"cli_sweep: exit {rc}, sizes {[r['n'] for r in recs]}")
+    products = applies = 0
+    limits = {}
+    for r in recs:
+        what = f"cli_sweep n={r['n']}"
+        if (not r["converged"] or not r["true_residual"] < 1e-3
+                or r["iterations"] > 20 or not r["dedup_hm"]
+                or not r["device"].startswith("cuda")):
+            fail(f"{what}: {r}")
+        if r["n"] in (511, 1023):
+            limits[r["n"]] = oracle_problem_iters("c2_f2", r["n"]) + 1
+            if r["iterations"] > limits[r["n"]]:
+                fail(f"{what}: {r['iterations']} iterations > "
+                     f"{limits[r['n']]}")
+        # one restart cycle: it + 1 products, it + 2 applies (check_solve)
+        products += r["iterations"] + 1
+        applies += r["iterations"] + 2
+    want = {variant_key(m, 1, False, shared=True): applies
+            for m in ("fwd", "bwd")}
+    if (counts["stencil_matvec"] != products
+            or counts["sweep_variants"] != want):
+        fail(f"cli_sweep: launches {counts}, want {products} products and "
+             f"{want}")
+    check_setup_launches("cli_sweep", counts)
+    out = {"exit_code": rc, "lines": [l for l in buf.getvalue().splitlines()
+                                      if l.startswith("n=")],
+           "limits": limits, "peak_memory_bytes": peak,
+           "records": [{k: r[k] for k in (
+               "n", "wave_num", "const", "iterations", "true_residual",
+               "init_time_s", "solve_time_s", "factor_stride")}
+               for r in recs]}
+    say("cli_sweep", **out, launches=counts)
+    return counts, out
+
+
+def wide_batch_phase(dev):
+    """run_multisolve with eight sources of c1_f2 over compressed G: each
+    sweep of more than four right-hand sides runs in launches of at most
+    four.  Then the same eight sources on the same operator and
+    preconditioner (`driver`'s own stages), through solve_multi_rhs once
+    as eight and once as two batches of four: the lockstep GMRES keeps each
+    member's state, so the counts must be equal and the solutions agree;
+    and one apply of the eight makes 2 x ceil(8/4) launches."""
+    n, b = FULL["n"], FULL["b"]
+    cfg = WIDE
+    kw = {k: v for k, v in cfg.items() if k != "wave_nums"}
+    recs, counts, peak = counted(lambda: ht.run_multisolve(
+        n, b, cfg["wave_nums"], **kw), "wide_batch")
+    check_multisolve("wide_batch", cfg, recs, counts, peak, True)
+    [rec] = recs
+    wn, C, K = cfg["wave_nums"][0], cfg["consts"][0], cfg["n_sources"]
+    stage = dict(n=n, b=b, problem=cfg["problem"], fidelity="corrected",
+                 cdtype=torch.complex64, device=dev)
+    A, hm, _ = ht_driver._assemble_stage(wn, C, 2.0, **stage)
+    P = ht_driver._factor_stage(
+        A, hm, b=b, hf_full_coupling=True, d2_replace=True,
+        setup_chunk=sweeping.DEFAULT_SETUP_CHUNK, g_dtype=cfg["g_dtype"],
+        factor_stride=cfg["factor_stride"], g_compress=True, device=dev)
+    del hm
+    r1s = np.linspace(0.2, 0.8, K).astype(np.float32)
+    F = ht_driver._sources_stage(
+        wn, 2.0, r1s, np.full((K,), 0.125, np.float32), n=n,
+        problem=cfg["problem"], cdtype=torch.complex64,
+        device=dev).reshape(K, -1)
+    _, apply_counts, _ = counted(lambda: P.apply_multi(F))
+    chunks = -(-K // k2.MAX_WIDTH)
+    want = {variant_key(m, k2.MAX_WIDTH, True): chunks
+            for m in ("fwd", "bwd")}
+    if apply_counts["sweep_variants"] != want:
+        fail(f"wide_batch: one apply of {K} launched "
+             f"{apply_counts['sweep_variants']}, want {want}")
+    one = ht_driver._matvec_of(A)
+
+    def solve(Fb):
+        return solve_multi_rhs(lambda V: torch.stack([one(v) for v in V]),
+                               Fb.contiguous(), M=P.apply_multi,
+                               restart=20, rtol=cfg["rtol"], maxiter=200,
+                               device=dev)
+
+    whole = solve(F)
+    halves = [solve(F[:K // 2]), solve(F[K // 2:])]
+    its = np.asarray(whole.iterations).tolist()
+    its_halves = [int(i) for h in halves for i in h.iterations]
+    x_halves = torch.cat([h.x for h in halves])
+    x_rel = [((whole.x[k] - x_halves[k]).norm() / x_halves[k].norm()).item()
+             for k in range(K)]
+    A_np, X, F_np = A.to_numpy(), whole.x.cpu().numpy(), F.cpu().numpy()
+    true_res = [float(np.linalg.norm(
+        ht_driver._host_matvec_any(A_np, X[k].reshape(n, n)).ravel()
+        - F_np[k]) / np.linalg.norm(F_np[k])) for k in range(K)]
+    out = {"records": [{k: rec[k] for k in (
+               "iterations", "converged", "true_residuals", "init_time_s",
+               "solve_time_s", "factor_stride", "g_bytes_at_rest")}],
+           "peak_memory_bytes": peak, "apply_launches": apply_counts,
+           "iterations_eight": its, "iterations_two_fours": its_halves,
+           "x_rel_eight_vs_fours": x_rel, "x_tol": WIDE_X_TOL,
+           "true_residuals_eight": true_res}
+    say("wide_batch_compare", **out)
+    if its != its_halves or not all(whole.converged):
+        fail(f"wide_batch: counts {its} as eight, {its_halves} as 4 + 4")
+    if any(abs(a - c) > 1 for a, c in zip(rec["iterations"], its)):
+        fail(f"wide_batch: run_multisolve counts {rec['iterations']}, the "
+             f"same sources on its stages {its} (+-1)")
+    if not max(x_rel) <= WIDE_X_TOL:
+        fail(f"wide_batch: eight against 4 + 4 differ by {max(x_rel):.3e}")
+    if not max(true_res) < 1e-3:
+        fail(f"wide_batch: true residuals {true_res}")
+    del A, P, F, whole, halves
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def flagship_problems_phase(paths, record, dev):
+    """n = 2047 (b = 12, omega/2pi = 256, C = 100, bf16 G) for c2_f1, whose
+    one shared 2047^2 panel every sweep reads (limit: the port's complex128
+    CPU count + 1), and for c1_f2 over compressed G at stride 8 (no
+    reference count: c1_f1's limit).  Then the shared panel's launch plan:
+    sixteen rows a block, and one stage of them in shared memory in bf16
+    (none would fit in float32)."""
+    for name, cfg in FLAG_PROBLEMS.items():
+        shared = cfg["problem"] in ROW_INVARIANT
+        limit = (oracle_problem_iters(cfg["problem"], cfg["n"], impl="port")
+                 + 1 if shared else MAX_ITERS_FLAG)
+        rep, counts, peak = counted_solve(cfg, name)
+        check_solve(name, cfg, rep, counts, peak, max_iters=limit,
+                    lerp=not shared, shared=shared)
+        got = (rep.config["dedup_hm"], rep.config["factor_stride"])
+        if got != (shared, 1 if shared else FLAG_STRIDE):
+            fail(f"{name}: dedup_hm and stride {got}")
+        paths[name] = counts
+        record[name] = {**rep.metrics(), "limit": limit}
+        record[f"{name}_peak_bytes"] = peak
+        del rep
+        torch.cuda.empty_cache()
+    plans = {t: dataclasses.asdict(k2.launch_plan(
+        FLAG["n"], 1, size, False, True, k2._sm_count(dev)))
+        for t, size in (("bf16", 2), ("f32", 4))}
+    record["flagship_shared_plan"] = plans
+    say("flagship_shared_plan", **plans)
+    if (plans["bf16"]["rows_per_block"], plans["bf16"]["stages"]) != (16, 1):
+        fail(f"the n = 2047 shared bf16 panel's plan {plans['bf16']}")
+
+
+def amortized_plan(n, stride):
+    """bench.plan's peak of a four-source amortized sweep over compressed G
+    at `stride`, and what it holds besides while it factors the next
+    anchor: the previous anchor's stack, H_F stack and operator."""
+    p = capacity.plan(n, 12, 4, g_dtype="bf16", g_compress_stride=stride)
+    return p, p["g_stack_gb"] + p["tf_stack_gb"] + 5 * n ** 2 * 8 / 1e9
+
+
+def flagship_amortized_phase(paths, record):
+    """MULTISOLVE_AMORTIZED_n2047.jsonl's run (the JAX package ran out of
+    memory re-running it): four frequencies at n = 2047 over compressed G
+    at stride 16, four sources, an anchor every third frequency.  The
+    planner first: its peak with the held anchor must fit the card.  Each
+    source within the record's count + 1."""
+    n, b = FLAG["n"], FLAG["b"]
+    cfg = FLAG_AMORTIZED
+    p, held = amortized_plan(n, cfg["factor_stride"])
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    if not p["peak_gb"] + held < 0.92 * card_gb:
+        fail(f"flagship_amortized: the planner's {p['peak_gb'] + held:.2f} "
+             f"GB does not fit the card's {card_gb:.2f} GB")
+    kw = {k: v for k, v in cfg.items() if k != "wave_nums"}
+    recs, counts, peak = counted(lambda: ht.run_multisolve(
+        n, b, cfg["wave_nums"], **kw), "flagship_amortized")
+    check_multisolve("flagship_amortized", cfg, recs, counts, peak, True,
+                     ["factor", "omega_lerp", "omega_lerp", "factor"],
+                     max_iters=MAX_ITERS_FLAG)
+    for r, ref in zip(recs, FLAG_AMORTIZED_ITERS, strict=True):
+        if any(i > j + 1 for i, j in zip(r["iterations"], ref, strict=True)):
+            fail(f"flagship_amortized at {r['wave_num']}: {r['iterations']}"
+                 f", the record {ref} (+1)")
+    paths["flagship_amortized"] = counts
+    record["flagship_amortized"] = recs
+    record["flagship_amortized_plan_gb"] = p["peak_gb"] + held
+    torch.cuda.empty_cache()
+
+
 # -- the distributed path -------------------------------------------------------
 
 def rank_counts(rank_launches):
@@ -1508,8 +1824,9 @@ def rank_counts(rank_launches):
         for k in ("stencil_matvec", "sweep", "gj_inverse"):
             out[k] += c[k]
         for key, n in c["sweep_variants"].items():
-            mode, width, lerp, tri = key.split(",")
-            v = variant_key(mode, int(width), lerp == "True", tri == "True")
+            mode, width, lerp, tri, shared = key.split(",")
+            v = variant_key(mode, int(width), lerp == "True", tri == "True",
+                            shared == "True")
             out["sweep_variants"][v] = out["sweep_variants"].get(v, 0) + n
     return out
 
@@ -1709,10 +2026,6 @@ def plan_check():
         return capacity.plan9(n, b, batch, g_dtype="bf16",
                               factor_stride=stride, g_compress=compress)
 
-    def anchor(p, fields):
-        return (p["g_stack_gb"] + p["tf_stack_gb"]
-                + fields * p["n"] ** 2 * 8 / 1e9)
-
     n, nF = FULL["n"], FLAG["n"]
     plans = {
         "solve": (p5(n, 1, factor_stride=LERP_STRIDE), 0.0),
@@ -1725,10 +2038,22 @@ def plan_check():
         "flagship_multi": (p5(nF, 4, g_compress_stride=FLAG_STRIDE), 0.0),
         "flagship9": (p9(nF, FLAG9["b"], 4, True, FLAG_STRIDE), 0.0),
     }
-    amortized = p5(n, 4, g_compress_stride=LERP_STRIDE)
-    plans["amortized"] = (amortized, anchor(amortized, 5))
+    plans["amortized"] = amortized_plan(n, LERP_STRIDE)
+    plans["flagship_amortized"] = amortized_plan(
+        nF, FLAG_AMORTIZED["factor_stride"])
+    # the other problems: c1_f2 as the main path; the c2 media against the
+    # planner's dense stride-1 stack, which does not model their one shared
+    # panel (a ratio far below 1 there is the saving, not a fault)
+    plans.update({
+        "problem_c1_f2": plans["solve"],
+        "problem_c2_f1": (p5(n, 1), 0.0), "problem_c2_f2": (p5(n, 1), 0.0),
+        "wide_batch": (p5(n, WIDE["n_sources"],
+                          g_compress_stride=LERP_STRIDE), 0.0),
+        "flagship_c1_f2": plans["flagship"],
+        "flagship_c2_f1": (p5(nF, 1), 0.0)})
     multi9 = p9(n, NINE["b"], 4, True, LERP_STRIDE)
-    plans["multisolve9"] = (multi9, anchor(multi9, 9))
+    plans["multisolve9"] = (multi9, multi9["g_stack_gb"]
+                            + multi9["tf_stack_gb"] + 9 * n ** 2 * 8 / 1e9)
     for name, (nd, b, cfg, _, _) in DIST_PHASES.items():
         stride = cfg.get("factor_stride") or ht_driver.auto_factor_stride(
             nd, "c1_f1")
@@ -1838,8 +2163,13 @@ def main():
         for mode in k2.MODES:
             keep(check_k2(*planes, mode, gen, timed=True,
                           library_step=(mode == "bwd")))
-    keep(check_k2(*shared, "bwd", gen, timed=True, rows=Mg,
-                  library_step=True))
+    # one shared panel, as the row-invariant c2 media sweep it: float32
+    # (the command line's sweep, working precision) and bf16 (run_solver)
+    shared16 = [g[:1].contiguous() for g in G16]
+    for planes in (shared, shared16):
+        for mode in ("fwd", "bwd"):
+            keep(check_k2(*planes, mode, gen, timed=True, rows=Mg,
+                          library_step=(mode == "bwd")))
     for planes in (G32, G16):
         for mode in k2.MODES:
             keep(check_k2(*planes, mode, gen, timed=True, R=4,
@@ -1859,7 +2189,7 @@ def main():
                 keep(check_k2(*(g[:Mg9] for g in planes), mode, gen,
                               timed=True, R=R, tri=True,
                               library_step=(mode == "bwd")))
-    del G32, G16, shared
+    del G32, G16, shared, shared16
     torch.cuda.empty_cache()
 
     # K2 lerp: stride-7 sample panels (146 for 1011 sweep rows) with the
@@ -1969,8 +2299,8 @@ def main():
                 fail(f"apply9 n={c9.n} {g_dtype} d2={d2}: {rel:.3e} > "
                      f"{K2_TOL}")
             if sorted(k2.launches_by_variant) != sorted(
-                    [("fwd", 1, False, True),
-                     ("bwd" if d2 else "bwd_sub", 1, False, True)]):
+                    [("fwd", 1, False, True, False),
+                     ("bwd" if d2 else "bwd_sub", 1, False, True, False)]):
                 fail(f"apply9: launches {k2.launches_by_variant}")
     del prob, A9, hm9, P
     torch.cuda.empty_cache()
@@ -2179,6 +2509,14 @@ def main():
         accuracy_phase()
     paths["cli_main"], record["cli_main"] = cli_phase(args.out_dir)
 
+    # the reference's other three problems at full width, its experiment
+    # harness, a batch wider than one launch, and n = 2047 for them
+    problems_phase(paths, record)
+    paths["cli_sweep"], record["cli_sweep"] = cli_sweep_phase(args.out_dir)
+    paths["wide_batch"], record["wide_batch"] = wide_batch_phase(dev)
+    flagship_problems_phase(paths, record, dev)
+    flagship_amortized_phase(paths, record)
+
     # the distributed path: four ranks sharing the card, each phase beside
     # its single-card call; then each kernel at the bands' shapes
     launch.RANK_LIMIT_S = DIST_LIMIT_S
@@ -2231,7 +2569,8 @@ def main():
             if path in DIST_PATH_N:
                 name = dist_sweep_name(path, key)[0]
             else:
-                name = variant_name(mode, path not in F32_PATHS, lerp=lerp,
+                name = variant_name(mode, path not in F32_PATHS,
+                                    shared="shared" in parts, lerp=lerp,
                                     R=None if width == 1 else width,
                                     tri=tri, chunk=path in CHUNK_PATHS,
                                     big=path in BIG_PATHS)
@@ -2299,6 +2638,25 @@ def main():
                           "sweep_bwd[f32,tri]"]),
             ("cli_main", ["stencil_matvec", "sweep_fwd[f32]",
                           "sweep_bwd[f32]"]),
+            ("problem_c1_f2", ["stencil_matvec", "sweep_fwd[bf16]",
+                               "sweep_bwd[bf16]"]),
+            ("problem_c2_f1", ["stencil_matvec", "sweep_fwd[bf16,shared]",
+                               "sweep_bwd[bf16,shared]"]),
+            ("problem_c2_f2", ["stencil_matvec", "sweep_fwd[bf16,shared]",
+                               "sweep_bwd[bf16,shared]"]),
+            ("cli_sweep", ["stencil_matvec", "sweep_fwd[f32,shared]",
+                           "sweep_bwd[f32,shared]"]),
+            ("wide_batch", ["stencil_matvec", "sweep_fwd[bf16,lerp,R4]",
+                            "sweep_bwd[bf16,lerp,R4]"]),
+            ("flagship_c2_f1", ["stencil_matvec",
+                                "sweep_fwd[bf16,shared,n2047]",
+                                "sweep_bwd[bf16,shared,n2047]"]),
+            ("flagship_c1_f2", ["stencil_matvec",
+                                "sweep_fwd[bf16,lerp,n2047]",
+                                "sweep_bwd[bf16,lerp,n2047]"]),
+            ("flagship_amortized", ["stencil_matvec",
+                                    "sweep_fwd[bf16,lerp,R4,n2047]",
+                                    "sweep_bwd[bf16,lerp,R4,n2047]"]),
             ("dist_dryrun", ["stencil_matvec", "sweep_fwd[bf16,R2,band64]",
                              "sweep_bwd[bf16,R2,band64]",
                              "sweep_fwd[f32,tri,band64]",

@@ -55,10 +55,11 @@ MAX_STAGES = 2
 
 #: number of sweeps launched by `sweep` in this process, by (mode, number of
 #: right-hand sides in the launch, with lerp tables, with tridiagonal
-#: coupling).  One sweep is one call of the C entry point, which makes one
-#: cooperative launch of the persistent kernel.  This is
-#: the one count kept; `launches`, `launches_by_mode`, `launches_by_width` and
-#: `launches_lerp` are read as attributes of the module and summed from it.
+#: coupling, over one shared panel).  One sweep is one call of the C entry
+#: point, which makes one cooperative launch of the persistent kernel.  This
+#: is the one count kept; `launches`, `launches_by_mode`, `launches_by_width`,
+#: `launches_lerp` and `launches_shared` are read as attributes of the module
+#: and summed from it.
 launches_by_variant: dict = {}
 
 #: the `LaunchPlan` of the last launch of each variant, by the keys of
@@ -71,8 +72,9 @@ def reset_counts() -> None:
     plans_by_variant.clear()
 
 
-def _count(mode: str, width: int, lerp: bool, tri: bool) -> None:
-    key = (mode, width, lerp, tri)
+def _count(mode: str, width: int, lerp: bool, tri: bool,
+           shared: bool = False) -> None:
+    key = (mode, width, lerp, tri, shared)
     launches_by_variant[key] = launches_by_variant.get(key, 0) + 1
 
 
@@ -81,13 +83,15 @@ def __getattr__(name: str):
         return sum(c for k, c in launches_by_variant.items() if keep(*k))
 
     if name == "launches":
-        return total(lambda mode, width, lerp, tri: True)
+        return total(lambda *key: True)
     if name == "launches_lerp":
-        return total(lambda mode, width, lerp, tri: lerp)
+        return total(lambda mode, width, lerp, tri, shared: lerp)
+    if name == "launches_shared":
+        return total(lambda mode, width, lerp, tri, shared: shared)
     if name == "launches_by_mode":
-        return {m: total(lambda mode, width, lerp, tri: mode == m) for m in MODES}
+        return {m: total(lambda mode, *rest: mode == m) for m in MODES}
     if name == "launches_by_width":
-        return {w: total(lambda mode, width, lerp, tri: width == w)
+        return {w: total(lambda mode, width, *rest: width == w)
                 for w in range(1, MAX_WIDTH + 1)}
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
@@ -369,6 +373,6 @@ def sweep(G_re, G_im, u, c, carry0, *, mode: str, g_lo=None,
                 scratch.data_ptr() if scratch is not None else None,
                 plan.blocks, plan.rows_per_block, plan.stages, stream)
             build.check(status, f"sweep[{mode}]")
-            _count(mode, width, lerp, tri)
-            plans_by_variant[(mode, width, lerp, tri)] = plan
+            _count(mode, width, lerp, tri, shared)
+            plans_by_variant[(mode, width, lerp, tri, shared)] = plan
     return out

@@ -1,5 +1,6 @@
-"""Sparse matrix algebra: CSR scale and add, the stencil as block-tridiagonal
-BSR, and the block-sparse product (SpGEMM).
+"""Sparse matrix algebra: stencil add / scale / axpy / diagonal update, CSR
+scale and add, the stencil as block-tridiagonal BSR, and the block-sparse
+product (SpGEMM).
 
 As in the JAX package, every sparsity pattern is computed on the host in
 numpy from concrete index arrays (the symbolic phase); the numeric phase
@@ -14,6 +15,27 @@ import numpy as np
 import torch
 
 from ..core.sparse import BSR, CSR, Stencil5, _host, _index
+
+
+# -- stencil algebra (same pattern by construction) ---------------------------
+
+def stencil_add(A: Stencil5, B: Stencil5) -> Stencil5:
+    return Stencil5(*(a + b for a, b in zip(A.fields(), B.fields())))
+
+
+def stencil_scale(A: Stencil5, alpha) -> Stencil5:
+    return A.map(lambda f: alpha * f)
+
+
+def stencil_axpy(alpha, A: Stencil5, B: Stencil5) -> Stencil5:
+    """alpha * A + B, for example a complex shift of the operator."""
+    return Stencil5(*(alpha * a + b for a, b in zip(A.fields(), B.fields())))
+
+
+def stencil_diag_update(A: Stencil5, d: torch.Tensor) -> Stencil5:
+    """A + diag(d) for grid-shaped d: the H_m = K + diag(w_m) structure of
+    the subgrid family, which differs only in its diagonal."""
+    return Stencil5(cc=A.cc + d, cw=A.cw, ce=A.ce, cs=A.cs, cn=A.cn)
 
 
 # -- CSR algebra --------------------------------------------------------------

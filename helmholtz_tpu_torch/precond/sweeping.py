@@ -554,3 +554,13 @@ def apply_preconditioner_multi(P: SweepingPreconditioner, F: torch.Tensor,
     rhs[:, b - 1] = P.a_cn[b - 1] * u_bwd[:, 0]
     uF = TFuF - _block_thomas_solve_multi(P.TF, P.hf_cs, P.hf_cn, rhs)
     return torch.cat([uF, u_bwd], dim=1)
+
+
+def apply_fixed_rhs(P: SweepingPreconditioner, f_fixed: torch.Tensor):
+    """Deviation D1 of the reference code, emulated: a "preconditioner"
+    that ignores its argument and returns the sweep of the fixed right-hand
+    side, computed once.  For emulation and diagnosis only: it is not a
+    linear operator, so no solver path takes it."""
+    L, n = P.grid_shape
+    u = apply_preconditioner(P, f_fixed.reshape(L, n)).reshape(-1)
+    return lambda _x: u

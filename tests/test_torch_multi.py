@@ -193,11 +193,13 @@ def test_sweep_wrapper_checks_and_counters(factored):
         k2.launches_by_width.values())
     k2._count("bwd", 4, True, False)
     k2._count("fwd", 2, False, True)
-    assert (k2.launches, k2.launches_lerp) == (2, 1)
-    assert k2.launches_by_width == {1: 0, 2: 1, 3: 0, 4: 1}
-    assert k2.launches_by_mode == {"fwd": 1, "bwd": 1, "bwd_sub": 0}
-    assert k2.launches_by_variant == {("bwd", 4, True, False): 1,
-                                      ("fwd", 2, False, True): 1}
+    k2._count("fwd", 1, False, False, True)
+    assert (k2.launches, k2.launches_lerp, k2.launches_shared) == (3, 1, 1)
+    assert k2.launches_by_width == {1: 1, 2: 1, 3: 0, 4: 1}
+    assert k2.launches_by_mode == {"fwd": 2, "bwd": 1, "bwd_sub": 0}
+    assert k2.launches_by_variant == {("bwd", 4, True, False, False): 1,
+                                      ("fwd", 2, False, True, False): 1,
+                                      ("fwd", 1, False, False, True): 1}
     k2.reset_counts()
     assert k2.launches == 0 and not k2.launches_by_variant
 

@@ -208,11 +208,12 @@ def test_gmres_edge_cases():
 
 # -- (g) the slice as a whole -------------------------------------------------
 
-@pytest.mark.parametrize("prob_name", ["c1_f1", "c2_f1"])
+@pytest.mark.parametrize("prob_name", ["c1_f1", "c1_f2", "c2_f1", "c2_f2"])
 def test_run_solver_matches_jax(prob_name):
-    """`run_solver(63, 12, 4.0, 61.0)` in both packages on the CPU: equal
-    iteration counts, u to 1e-8 of its largest entry.  c2_f1 takes the
-    shared-G path (one factored subgrid)."""
+    """`run_solver(63, 12, 4.0, 61.0)` in both packages on the CPU, for
+    each of the reference's four problems: equal iteration counts, u to
+    1e-8 of its largest entry.  The c2 problems take the shared-G path (one
+    factored subgrid)."""
     r_j = jdriver.run_solver(63, 12, 4.0, 61.0, problem=prob_name)
     r_t = tdriver.run_solver(63, 12, 4.0, 61.0, problem=prob_name,
                              device="cpu")
@@ -226,7 +227,7 @@ def test_run_solver_matches_jax(prob_name):
                                atol=1e-8 * np.abs(r_j.u).max())
     np.testing.assert_allclose(r_t.true_residual, r_j.true_residual,
                                rtol=1e-6)
-    assert r_t.config["dedup_hm"] == (prob_name == "c2_f1")
+    assert r_t.config["dedup_hm"] == prob_name.startswith("c2")
     assert r_t.config["factor_stride"] == 1
     assert r_t.config["dtype"] == "complex128"
     assert set(r_t.metrics()) >= {"iterations", "init_time_s",
