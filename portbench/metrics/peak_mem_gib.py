@@ -1,0 +1,6 @@
+"""The device memory peak over the window, `torch.cuda.max_memory_allocated`
+after `reset_peak_memory_stats` at its start, in GiB."""
+
+
+def read(run):
+    return run.peak_bytes / 2 ** 30 if run.peak_bytes > 0 else None
