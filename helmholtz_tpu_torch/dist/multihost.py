@@ -13,6 +13,7 @@ for a single process it is a no-op, as the JAX package's is.
 """
 from __future__ import annotations
 
+import atexit
 import os
 
 import torch
@@ -31,7 +32,8 @@ def initialize(init_method: str | None = None,
     exists).  `local`: the ranks on this host (default: torchrun's
     LOCAL_WORLD_SIZE, else all of them); the backend is chosen from it
     (`launch.choose_backend`).  Returns a topology summary {processes,
-    process_index, local_devices, global_devices}: one device per rank."""
+    process_index, local_devices, global_devices}: one device per rank.
+    A group joined here is destroyed at exit."""
     if world_size is None and "WORLD_SIZE" in os.environ:
         world_size = int(os.environ["WORLD_SIZE"])
         rank = int(os.environ["RANK"])
@@ -40,6 +42,9 @@ def initialize(init_method: str | None = None,
         launch.init_rank(rank, world_size, device=device, backend=backend,
                          init_method=init_method, local=local,
                          timeout=timeout)
+        # left to the interpreter's teardown, the group can abort the
+        # process as it exits; JAX's `initialize` also shuts down at exit
+        atexit.register(_leave_group)
     procs = dist.get_world_size() if dist.is_initialized() else 1
     dev = torch.device(device)
     local = torch.cuda.device_count() if dev.type == "cuda" else 1
@@ -49,6 +54,11 @@ def initialize(init_method: str | None = None,
         "local_devices": local,
         "global_devices": procs,
     }
+
+
+def _leave_group() -> None:
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def global_layer_mesh(axis_name: str = LAYER_AXIS) -> LayerMesh:

@@ -12,8 +12,6 @@ import jax.numpy as jnp
 from helmholtz_tpu.bench import accuracy as jacc
 from helmholtz_tpu_torch.bench import accuracy as tacc
 
-from torch_parity import single_thread  # noqa: F401
-
 
 @pytest.mark.parametrize("wave_num", (4.0, 16.0))
 def test_manufactured_fields_match_jax_autodiff(wave_num):

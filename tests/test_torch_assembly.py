@@ -14,7 +14,7 @@ from helmholtz_tpu.fd import stencil as jstencil
 from helmholtz_tpu_torch.fd import stencil as tstencil
 
 from torch_parity import (assert_stencils_close, both_problems,  # noqa: F401
-                          single_thread, to_np)
+                          to_np)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 N, B, WAVE, CONST = 31, 6, 2.0, 20.0

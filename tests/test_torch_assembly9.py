@@ -17,8 +17,8 @@ from helmholtz_tpu_torch.fd import stencil as tstencil
 from helmholtz_tpu_torch.ops import spmv as tspmv
 
 from torch_parity import (FIELDS, FIELDS9, assert_stencils_close,  # noqa: F401
-                          both_problems9, random_grid, single_thread,
-                          stencil9_to_torch, to_np)
+                          both_problems9, random_grid, stencil9_to_torch,
+                          to_np)
 
 N, B, WAVE, CONST = 27, 5, 2.0, 30.0
 TOL = 1e-12

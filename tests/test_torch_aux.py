@@ -28,7 +28,7 @@ from helmholtz_tpu_torch.utils import checkpoint as tcheckpoint
 from helmholtz_tpu_torch.utils import profiling
 from helmholtz_tpu_torch.utils.logging import GmresCounter, log_metrics
 
-from torch_parity import single_thread, to_np  # noqa: F401
+from torch_parity import to_np
 
 
 def _same_state(P, Q):

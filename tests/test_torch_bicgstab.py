@@ -18,8 +18,7 @@ from helmholtz_tpu_torch import driver as tdriver
 from helmholtz_tpu_torch.precond import sweeping as tsweep
 from helmholtz_tpu_torch.solve import batched as tbatched
 
-from torch_parity import (port_problems, random_grid,  # noqa: F401
-                          single_thread, to_np)
+from torch_parity import port_problems, random_grid, to_np  # noqa: F401
 
 N, B, WAVE, CONST = 33, 6, 2.0, 20.0
 

@@ -17,8 +17,6 @@ from helmholtz_tpu_torch.ops.kernels import bsr_spmm as k4
 from helmholtz_tpu_torch.scripts.common import (
     K4_INSTANCE_EMPTY, K4_INSTANCES, k4_instance)
 
-from torch_parity import single_thread  # noqa: F401
-
 SMS = 132   # the H100's SM count, which the plan sizes its units from
 
 

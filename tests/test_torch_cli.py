@@ -13,8 +13,6 @@ from helmholtz_tpu.cli import main as jax_cli
 from helmholtz_tpu_torch.cli import main as cli
 from helmholtz_tpu_torch.utils.checkpoint import load_report_arrays
 
-from torch_parity import single_thread  # noqa: F401
-
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--n", "31", "--b", "8", "--wave-num", "2", "--const", "30"]
 

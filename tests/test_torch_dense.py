@@ -22,7 +22,7 @@ from helmholtz_tpu_torch.ops.kernels import gj_inverse as k3
 from helmholtz_tpu_torch.precond import sweeping as tsweep
 from helmholtz_tpu_torch.precond import sweeping9 as tsweep9
 
-from torch_parity import single_thread, to_jax, to_np  # noqa: F401
+from torch_parity import to_jax, to_np
 
 
 def dominant(seed, shape, scale=2.0):

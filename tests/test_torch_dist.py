@@ -36,7 +36,7 @@ import helmholtz_tpu_torch as ht
 import torch_dist_ranks
 from torch_parity import (FIELDS, FIELDS9, port_problems,  # noqa: F401
                           port_problems9, precond9_to_torch, precond_to_torch,
-                          random_grid, single_thread, to_np)
+                          random_grid, to_np)
 
 NDEV = 4
 N, B = 32, 3

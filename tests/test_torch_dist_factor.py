@@ -21,7 +21,6 @@ from helmholtz_tpu_torch.dist import launch
 from helmholtz_tpu_torch.dist.partition import band_sample_windows
 
 import torch_dist_ranks
-from torch_parity import single_thread  # noqa: F401
 
 NDEV = 4
 N, B = 32, 3

@@ -31,8 +31,7 @@ from helmholtz_tpu_torch.cli import main as cli
 from helmholtz_tpu_torch.dist import launch
 
 import torch_dist_ranks
-from torch_parity import (port_problems, random_grid,  # noqa: F401
-                          single_thread, to_np)
+from torch_parity import port_problems, random_grid, to_np  # noqa: F401
 
 NDEV = 4
 N, B = 32, 3

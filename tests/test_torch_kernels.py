@@ -23,8 +23,7 @@ from helmholtz_tpu_torch.ops.kernels import sweep as k2
 from helmholtz_tpu_torch.precond import sweeping as tsweep
 
 from torch_parity import (port_problems, precond_to_torch,  # noqa: F401
-                          random_grid, single_thread, stencil_to_torch,
-                          to_np)
+                          random_grid, stencil_to_torch, to_np)
 
 N, B, WAVE, CONST = 17, 4, 1.0, 20.0
 

@@ -27,8 +27,7 @@ from helmholtz_tpu_torch.precond import sweeping as tsweep
 from helmholtz_tpu_torch.solve import batched as tbatched
 
 from torch_parity import (port_problems, precond_to_torch,  # noqa: F401
-                          random_grid, single_thread, stencil_to_torch,
-                          to_np)
+                          random_grid, stencil_to_torch, to_np)
 
 N, B, WAVE, CONST = 33, 6, 2.0, 20.0
 M_ROWS = N - B

@@ -13,7 +13,7 @@ from helmholtz_tpu import driver as jdriver
 from helmholtz_tpu_torch import driver as tdriver
 from helmholtz_tpu_torch.solve import ir as tir
 
-from torch_parity import random_grid, single_thread, to_np  # noqa: F401
+from torch_parity import random_grid, to_np
 
 ARGS = (63, 12, 8.0, 61.0)
 RTOL = 1e-9

@@ -18,7 +18,7 @@ from helmholtz_tpu_torch.precond import sweeping as tsweep
 from helmholtz_tpu_torch.precond import sweeping9 as tsweep9
 
 from torch_parity import (port_problems9, precond9_to_torch,  # noqa: F401
-                          random_grid, single_thread, to_np)
+                          random_grid, to_np)
 
 N, B, WAVE, CONST, STRIDE = 24, 4, 2.0, 30.0, 4
 M = N - B

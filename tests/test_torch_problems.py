@@ -17,7 +17,7 @@ from helmholtz_tpu_torch.precond import sweeping as tsweep
 from helmholtz_tpu_torch.scripts import oracle_problems
 
 from torch_parity import (FIELDS, port_problems, random_grid,  # noqa: F401
-                          single_thread, stencil_to_torch, to_jax, to_np)
+                          stencil_to_torch, to_jax, to_np)
 
 
 def _random_stencil(seed, shape=(7, 9)):

@@ -15,8 +15,8 @@ from helmholtz_tpu_torch import driver as tdriver
 from helmholtz_tpu_torch.precond import recompute as trecompute
 from helmholtz_tpu_torch.precond import sweeping as tsweep
 
-from torch_parity import (port_problems, random_grid,  # noqa: F401
-                          single_thread, to_jax, to_np)
+from torch_parity import (port_problems, random_grid, to_jax,  # noqa: F401
+                          to_np)
 
 N, B, WAVE, CONST = 33, 6, 2.0, 20.0
 M = N - B

@@ -10,8 +10,6 @@ import pytest
 
 from helmholtz_tpu_torch.bench import roofline
 
-from torch_parity import single_thread  # noqa: F401
-
 
 @pytest.mark.parametrize("measure, size", [("measure_streaming_bw", 4),
                                            ("measure_read_bw", 4),

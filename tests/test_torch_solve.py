@@ -19,8 +19,7 @@ from helmholtz_tpu_torch.ops.kernels.sweep import g_ld
 from helmholtz_tpu_torch.precond import sweeping as tsweep
 
 from torch_parity import (port_problems, precond_to_torch,  # noqa: F401
-                          random_grid, single_thread, stencil_to_torch,
-                          to_np)
+                          random_grid, stencil_to_torch, to_np)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 N, B, WAVE, CONST = 31, 6, 2.0, 20.0

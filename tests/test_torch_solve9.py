@@ -16,8 +16,6 @@ import torch
 from helmholtz_tpu import driver as jdriver
 from helmholtz_tpu_torch import driver as tdriver
 
-from torch_parity import single_thread  # noqa: F401
-
 ORACLE = {}
 for _line in (pathlib.Path(__file__).resolve().parents[1]
               / "ORACLE.json").read_text().splitlines():

@@ -24,7 +24,7 @@ from helmholtz_tpu_torch.ops import spmv as tspmv
 from helmholtz_tpu_torch.ops.kernels import bsr_spmm as k4
 from helmholtz_tpu_torch.precond import exact as texact
 
-from torch_parity import single_thread, to_jax, to_np  # noqa: F401
+from torch_parity import to_jax, to_np
 
 SPARSE_PRODUCTS = ("bsr_matmat", "bsr_matvec", "coo_matvec", "csr_matmat",
                    "csr_matvec")

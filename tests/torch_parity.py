@@ -4,7 +4,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 import helmholtz_tpu as hj
 import helmholtz_tpu_torch as ht
@@ -16,19 +15,6 @@ from helmholtz_tpu_torch.fd import stencil as tstencil
 
 FIELDS = ("cc", "cw", "ce", "cs", "cn")
 FIELDS9 = FIELDS + ("csw", "cse", "cnw", "cne")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def single_thread():
-    """The grids here are tiny; one thread for torch and for numpy's and
-    scipy's BLAS keeps the parity tests from competing with parallel test
-    workers for cores.  A test module takes this fixture by importing it,
-    and the old settings come back when the module is done."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
-    torch.set_num_threads(before)
 
 
 def to_np(x):
