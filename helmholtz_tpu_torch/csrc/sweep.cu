@@ -6,7 +6,8 @@
 //   fwd     : out[k] = u[k] - c[k] * (G[k] @ prev),  prev = carry0 | out[k-1]
 //   bwd     : out[j] = G[j] @ (u[j] - c[j] * next),  next = carry0 | out[j+1]
 //   bwd_sub : out[j] = u[j] - G[j] @ (u[j] + c[j] * next)
-// with the coupling c shared by R right-hand sides (R = 1..4 per launch), G
+// with the coupling c shared by R right-hand sides (R = 1..4 per launch of
+// `sweep_kernel`; any R in one launch of `sweep_kernel_wide`, below), G
 // stored as two real planes (re, im) in float32 or bfloat16, c given as
 //   diagonal    : c[k] a row of n, applied element-wise (5-point scheme), or
 //   tridiagonal : c[k] three rows [sub, diag, sup] of n (9-point scheme),
@@ -111,6 +112,54 @@
 // needs for its bf16 matrix unit is therefore not needed here; it would
 // return only if the product moved to the tensor cores.  float32 G uses
 // plain float32 FMA (no TF32 anywhere).
+//
+// The wide kernel, `sweep_kernel_wide`: dense G, diagonal coupling, R > 4.
+// Past about R = 10 (bf16) or 20 (f32) a step is bound by operations, not
+// by the panel: at R = 64 and n = 1023 it is a (1023 x 1023) (1023 x 64)
+// complex product, 536 MFLOP, 8.0 us at 67 TFLOP/s, against 1.25 us to
+// stream its bf16 panel.  The kernel above cannot feed the FMA pipes
+// there: its operand sits in shared memory whole (8 KB a right-hand side at
+// ld = 1024), every block reads the whole carry every step, and one warp
+// owns one row, so a loaded operand value feeds one row.  Walking a batch
+// in launches of four streams G and pays the chain of ~1,010 grid barriers
+// once a launch.  The wide kernel takes the whole batch in ONE cooperative
+// launch, still one grid barrier a step:
+//   * The step's output (rows x right-hand sides) is cut in two dimensions
+//     over the resident grid: a block owns 8 TR rows (TR = 1, 2, 4 or 8, a
+//     template width) and a slice of 16 right-hand sides for the whole
+//     sweep, so it reads only its rows of G and only its slice of the
+//     carry.  The launch plan (ops/kernels/sweep.py `wide_plan`) picks the
+//     smallest TR whose row groups x slices fit one block an SM: at
+//     n = 1023, R = 64, 32 row groups x 4 slices; at R = 16, 128 row
+//     groups of 8 rows.  A slice past R is padded: its lanes compute, but
+//     read and write no memory.
+//   * Register tiles.  A lane holds TR rows x 4 right-hand sides of
+//     complex accumulators (rows li + 8 q, right-hand sides lj + 4 q; lane
+//     = li + 8 lj), so each 16 bytes of G it loads feed 4 right-hand sides
+//     and each operand value TR rows.  The 8 warps split the columns (k):
+//     warp w takes KS = 16 (bf16) or 8 (f32) columns of every k tile.
+//   * k tiles through a ring of 2-4 shared-memory stages (cp.async): a
+//     tile is 256 bytes of each of the block's G rows (128 bf16 / 64 f32
+//     columns) and the same columns of its 16 operand rows.  Each warp
+//     copies exactly its own columns, so a warp waits on its own copies
+//     and a __syncwarp, never on the block.  G does not depend on the
+//     carry: the first stages - 1 tiles of the next step's panel are
+//     copied BEFORE the block waits at the barrier.
+//   * The operand of every step is one vector of R rows at pitch ld in
+//     two scratch rows (ping-pong, pad columns zero): the owner of out[k]
+//     also writes the next step's operand element, out[k] (fwd) or
+//     u[k-1] -+ c[k-1] out[k] (bwd / bwd_sub), so the next step copies it
+//     with 16-byte cp.async (out itself has pitch n, 8-byte aligned) and
+//     reads it through L2 (cp.async.cg), coherent after the barrier.  A
+//     first barrier publishes step 0's operand from carry0.
+//   * Fixed order: the 8 warps' partial sums go through shared memory and
+//     are added in warp order; within a warp a lane adds its columns in
+//     order.  So an output's sum depends only on n, not on R, the grid or
+//     the other right-hand sides; there are no atomics.  The epilogue's
+//     products and sums are rounded one by one (__fmul_rn, __fadd_rn), so
+//     no template instance contracts them differently.
+// Products are float32 FMA on the CUDA cores, accumulators float32, as
+// above.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -627,6 +676,318 @@ sweep_kernel(const SweepArgs a) {
     }
 }
 
+// -- the wide kernel ----------------------------------------------------------
+
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kSliceRhs = 16;        // a block's right-hand sides: 4 lanes x 4
+constexpr int kTileRowBytes = 256;   // bytes of one G row in one k tile
+constexpr int kWideMinStages = 2;
+constexpr int kWideMaxStages = 4;
+
+// What one wide sweep is given: as SweepArgs for dense G and diagonal
+// coupling, with R right-hand sides in the launch.  scratch: 2 x R x ld
+// complex words, pad columns [n, ld) zero.  Block b owns rows
+// [(b % row_groups) * 8 TR, ...) and right-hand sides
+// [(b / row_groups) * 16, ...).
+struct WideArgs {
+    const void* g_re;
+    const void* g_im;
+    long long panel_stride;
+    int ld, n, S, R;
+    long long row_stride;
+    const float2* u;
+    const float2* c;
+    const float2* carry0;
+    float2* out;
+    float2* scratch;
+    int row_groups, stages;
+};
+
+// The layout of a ring stage, in bytes: the G tile (two planes of `rows`
+// rows at pitch kTileRowBytes + 16, so that 8 lanes reading 8 consecutive
+// rows hit 8 different bank groups), then the operand tile (16 right-hand
+// sides of complex64 at pitch 16 bytes past its columns, likewise).
+__host__ __device__ constexpr int wide_tile_k(int g_bytes) {
+    return kTileRowBytes / g_bytes;
+}
+__host__ __device__ constexpr int wide_g_pitch() { return kTileRowBytes + 16; }
+__host__ __device__ constexpr int wide_v_pitch(int g_bytes) {
+    return wide_tile_k(g_bytes) * 8 + 16;
+}
+__host__ __device__ constexpr int wide_stage_bytes(int rows, int g_bytes) {
+    return 2 * rows * wide_g_pitch() + kSliceRhs * wide_v_pitch(g_bytes);
+}
+
+// a * b with each product rounded, then summed: no contraction into FMA
+__device__ __forceinline__ float2 cmul_rn(float2 a, float2 b) {
+    return make_float2(__fsub_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y)),
+                       __fadd_rn(__fmul_rn(a.x, b.y), __fmul_rn(a.y, b.x)));
+}
+
+// u - c * o (bwd) or u + c * o (bwd_sub), rounded as cmul_rn
+template <int MODE>
+__device__ __forceinline__ float2 couple_rn(float2 ui, float2 ci, float2 o) {
+    const float2 p = cmul_rn(ci, o);
+    return (MODE == kBwd)
+        ? make_float2(__fsub_rn(ui.x, p.x), __fsub_rn(ui.y, p.y))
+        : make_float2(__fadd_rn(ui.x, p.x), __fadd_rn(ui.y, p.y));
+}
+
+// Wait until at most `pending` of this thread's cp.async groups are in
+// flight (the instruction takes an immediate).
+__device__ __forceinline__ void cp_async_wait_at_most(int pending) {
+    if (pending <= 0) {
+        cp_async_wait<0>();
+    } else if (pending == 1) {
+        cp_async_wait<1>();
+    } else {
+        cp_async_wait<2>();
+    }
+}
+
+// The lane's sums over this warp's columns [kk0, kk0 + KS) of one k tile,
+// kk0 relative to the tile, `valid` of them inside the row pitch: its TR
+// rows of G (li + 8 q) against its 4 right-hand sides (lj + 4 q) of the
+// operand tile.  Column by column, in order.
+template <typename T, int TR>
+__device__ __forceinline__ void wide_tile_product(
+        const unsigned char* stage, int kk0, int valid, int li, int lj,
+        float (&acc_re)[TR][4], float (&acc_im)[TR][4]) {
+    constexpr int E = Vec16<T>::kElems;
+    constexpr int KS = wide_tile_k(sizeof(T)) / kWideWarps;
+    constexpr int BR = 8 * TR;
+    constexpr int GP = wide_g_pitch();
+    constexpr int VP = wide_v_pitch(sizeof(T));
+    constexpr int G_PART = 2 * BR * GP;
+#pragma unroll
+    for (int h = 0; h < KS / E; ++h) {
+        if (h * E >= valid) break;            // the same for the whole warp
+        const int kk = kk0 + h * E;
+        float xr[4][E], xi[4][E];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const float4* v = reinterpret_cast<const float4*>(
+                stage + G_PART + (lj + 4 * q) * VP + kk * 8);
+#pragma unroll
+            for (int e = 0; e < E / 2; ++e) {
+                const float4 p = v[e];
+                xr[q][2 * e] = p.x;
+                xi[q][2 * e] = p.y;
+                xr[q][2 * e + 1] = p.z;
+                xi[q][2 * e + 1] = p.w;
+            }
+        }
+#pragma unroll
+        for (int rr = 0; rr < TR; ++rr) {
+            float gr[E], gi[E];
+            const unsigned char* g = stage + (li + 8 * rr) * GP
+                                     + kk * (int)sizeof(T);
+            Vec16<T>::load(reinterpret_cast<const T*>(g), gr);
+            Vec16<T>::load(reinterpret_cast<const T*>(g + BR * GP), gi);
+#pragma unroll
+            for (int e = 0; e < E; ++e) {
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    acc_re[rr][q] = fmaf(gr[e], xr[q][e], acc_re[rr][q]);
+                    acc_re[rr][q] = fmaf(-gi[e], xi[q][e], acc_re[rr][q]);
+                    acc_im[rr][q] = fmaf(gr[e], xi[q][e], acc_im[rr][q]);
+                    acc_im[rr][q] = fmaf(gi[e], xr[q][e], acc_im[rr][q]);
+                }
+            }
+        }
+    }
+}
+
+// One whole sweep of R right-hand sides.  Shared memory: `stages` ring
+// stages (wide_stage_bytes), then the warps' partial sums, [warp][right-hand
+// side][row] complex.
+template <typename T, int MODE, int TR>
+__global__ void __launch_bounds__(kWideThreads, 1)
+sweep_kernel_wide(const WideArgs a) {
+    extern __shared__ __align__(16) unsigned char wide_smem[];
+    constexpr int G_BYTES = (int)sizeof(T);
+    constexpr int E = Vec16<T>::kElems;
+    constexpr int KT = wide_tile_k(G_BYTES);
+    constexpr int KS = KT / kWideWarps;
+    constexpr int BR = 8 * TR;
+    constexpr int GP = wide_g_pitch();
+    constexpr int VP = wide_v_pitch(G_BYTES);
+    constexpr int G_PART = 2 * BR * GP;
+    constexpr int STAGE = wide_stage_bytes(BR, G_BYTES);
+    constexpr int OUTS = BR * kSliceRhs;
+    constexpr int PER_THREAD = (OUTS + kWideThreads - 1) / kWideThreads;
+    const int ld = a.ld, n = a.n, S = a.S, R = a.R;
+    const long long rs = a.row_stride;
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int li = lane & 7, lj = lane >> 3;
+    const int row0 = (blockIdx.x % a.row_groups) * BR;
+    const int rhs0 = (blockIdx.x / a.row_groups) * kSliceRhs;
+    const int nst = a.stages;
+    const int tiles = (ld + KT - 1) / KT;
+    float2* red = reinterpret_cast<float2*>(wide_smem + (size_t)nst * STAGE);
+    const T* planes[2] = {static_cast<const T*>(a.g_re),
+                          static_cast<const T*>(a.g_im)};
+    float2* buf[2] = {a.scratch, a.scratch + (size_t)R * ld};
+    cg::grid_group all_blocks = cg::this_grid();
+    auto step_row = [&](int s) { return MODE == kFwd ? s : S - 1 - s; };
+
+    // This warp's columns of k tile t: of panel k's rows of the block
+    // (both planes, two 16-byte chunks a row) and of the operand's
+    // right-hand sides of the block, into ring stage `slot`.  Rows past n,
+    // right-hand sides past R and columns past ld are not copied.
+    auto load_g = [&](int k, int t, int slot) {
+        const int col = t * KT + warp * KS;
+        unsigned char* st = wide_smem + (size_t)slot * STAGE;
+        for (int idx = lane; idx < 4 * BR; idx += 32) {
+            const int half = idx & 1, row = (idx >> 1) % BR;
+            const int plane = idx / (2 * BR);
+            const int grow = row0 + row, c0 = col + half * E;
+            if (grow < n && c0 < ld)
+                cp_async16(st + plane * BR * GP + row * GP
+                               + (warp * KS + half * E) * G_BYTES,
+                           planes[plane] + (size_t)k * a.panel_stride
+                               + (size_t)grow * ld + c0);
+        }
+    };
+    auto load_v = [&](const float2* operand, int t, int slot) {
+        constexpr int PER_RHS = KS / 2;      // 16-byte chunks: two complex
+        const int col = t * KT + warp * KS;
+        unsigned char* st = wide_smem + (size_t)slot * STAGE + G_PART;
+        for (int idx = lane; idx < kSliceRhs * PER_RHS; idx += 32) {
+            const int part = idx % PER_RHS, rl = idx / PER_RHS;
+            const int r = rhs0 + rl, c0 = col + 2 * part;
+            if (r < R && c0 < ld)
+                cp_async16(st + rl * VP + (warp * KS + 2 * part) * 8,
+                           operand + (size_t)r * ld + c0);
+        }
+    };
+
+    // step 0's operand, from carry0: each block its own elements
+    {
+        const int k = step_row(0);
+        for (int idx = threadIdx.x; idx < OUTS; idx += kWideThreads) {
+            const int i = row0 + idx % BR, r = rhs0 + idx / BR;
+            if (i < n && r < R) {
+                const float2 o = a.carry0[(size_t)r * n + i];
+                buf[0][(size_t)r * ld + i] = (MODE == kFwd) ? o
+                    : couple_rn<MODE>(a.u[k * rs + (size_t)r * n + i],
+                                      a.c[(size_t)k * n + i], o);
+            }
+        }
+    }
+    for (int t = 0; t < nst - 1 && t < tiles; ++t) load_g(step_row(0), t, t);
+    cp_async_commit();
+    all_blocks.sync();
+
+    for (int s = 0; s < S; ++s) {
+        const int k = step_row(s);
+        const bool next = s + 1 < S;
+        const float2* operand = buf[s & 1];
+        // what the epilogue needs besides the sums, loaded now: u and c of
+        // the thread's outputs (fwd, bwd_sub), and of the next step's
+        // operand elements (bwd, bwd_sub)
+        const float2 zero = make_float2(0.f, 0.f);
+        float2 pu[PER_THREAD], pc[PER_THREAD], pnu[PER_THREAD],
+            pnc[PER_THREAD];
+#pragma unroll
+        for (int o = 0; o < PER_THREAD; ++o) {
+            const int idx = threadIdx.x + o * kWideThreads;
+            const int i = row0 + idx % BR, r = rhs0 + idx / BR;
+            pu[o] = pc[o] = pnu[o] = pnc[o] = zero;
+            if (idx < OUTS && i < n && r < R) {
+                if (MODE != kBwd) pu[o] = a.u[k * rs + (size_t)r * n + i];
+                if (MODE == kFwd) pc[o] = a.c[(size_t)k * n + i];
+                if (MODE != kFwd && next) {
+                    pnu[o] = a.u[(k - 1) * rs + (size_t)r * n + i];
+                    pnc[o] = a.c[(size_t)(k - 1) * n + i];
+                }
+            }
+        }
+        // the operand's first tiles; G's came before the barrier
+        for (int t = 0; t < nst - 1; ++t) {
+            if (t < tiles) load_v(operand, t, t);
+            cp_async_commit();
+        }
+        float acc_re[TR][4], acc_im[TR][4];
+#pragma unroll
+        for (int rr = 0; rr < TR; ++rr) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc_re[rr][q] = acc_im[rr][q] = 0.f;
+        }
+        // tile t is this thread's t-th group since the barrier: wait for it,
+        // let the warp see its lanes' copies (and finish tile t - 1, whose
+        // stage the next copies refill), copy tile t + stages - 1, multiply
+        for (int t = 0; t < tiles; ++t) {
+            cp_async_wait_at_most(nst - 2);
+            __syncwarp();
+            const int ahead = t + nst - 1;
+            if (ahead < tiles) {
+                load_g(k, ahead, ahead % nst);
+                load_v(operand, ahead, ahead % nst);
+            }
+            cp_async_commit();
+            wide_tile_product<T, TR>(
+                wide_smem + (size_t)(t % nst) * STAGE, warp * KS,
+                ld - t * KT - warp * KS, li, lj, acc_re, acc_im);
+        }
+        __syncwarp();
+        // the next step's first tiles of G, before the barrier
+        if (next) {
+            for (int t = 0; t < nst - 1 && t < tiles; ++t)
+                load_g(step_row(s + 1), t, t);
+        }
+        cp_async_commit();
+#pragma unroll
+        for (int rr = 0; rr < TR; ++rr) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+                red[(warp * kSliceRhs + lj + 4 * q) * BR + li + 8 * rr] =
+                    make_float2(acc_re[rr][q], acc_im[rr][q]);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int o = 0; o < PER_THREAD; ++o) {
+            const int idx = threadIdx.x + o * kWideThreads;
+            const int rl = idx % BR, cl = idx / BR;
+            const int i = row0 + rl, r = rhs0 + cl;
+            if (idx >= OUTS || i >= n || r >= R) continue;
+            // the warps' partial sums in warp order
+            float2 sum = red[cl * BR + rl];
+#pragma unroll
+            for (int w = 1; w < kWideWarps; ++w) {
+                const float2 p = red[(w * kSliceRhs + cl) * BR + rl];
+                sum = make_float2(__fadd_rn(sum.x, p.x), __fadd_rn(sum.y, p.y));
+            }
+            float2 res;
+            if (MODE == kFwd) {
+                const float2 t = cmul_rn(pc[o], sum);
+                res = make_float2(__fsub_rn(pu[o].x, t.x),
+                                  __fsub_rn(pu[o].y, t.y));
+            } else if (MODE == kBwd) {
+                res = sum;
+            } else {
+                res = make_float2(__fsub_rn(pu[o].x, sum.x),
+                                  __fsub_rn(pu[o].y, sum.y));
+            }
+            a.out[k * rs + (size_t)r * n + i] = res;
+            if (next)
+                buf[(s + 1) & 1][(size_t)r * ld + i] = (MODE == kFwd)
+                    ? res : couple_rn<MODE>(pnu[o], pnc[o], res);
+        }
+        if (next) all_blocks.sync();
+    }
+}
+
+// Dynamic shared memory of a wide launch: `stages` ring stages and the
+// warps' partial sums.  ops/kernels/sweep.py `wide_plan` computes the same
+// number.
+size_t wide_shared_bytes(int rows_per_block, int g_bytes, int stages) {
+    return (size_t)stages * wide_stage_bytes(rows_per_block, g_bytes)
+           + (size_t)kWideWarps * rows_per_block * kSliceRhs * sizeof(float2);
+}
+
 // Dynamic shared memory of a launch: the operand and `stages` stages of G.
 // ops/kernels/sweep.py `launch_plan` computes the same number.
 size_t shared_bytes(int R, size_t g_bytes, bool lerp, int ld,
@@ -684,6 +1045,26 @@ cudaError_t prepare_launch(Kernel kernel, std::map<int, LaunchCache>& cache,
     return cudaSuccess;
 }
 
+// One cooperative launch of `kernel` with the one argument `a`.  Every
+// block must be resident at once; the runtime refuses the launch
+// otherwise, and so does this check, before it.
+template <typename Kernel, typename Args>
+int launch_cooperative(Kernel kernel, std::map<int, LaunchCache>& cache,
+                       const Args& a, int blocks, int threads, size_t smem,
+                       cudaStream_t stream) {
+    int resident = 0;
+    cudaError_t e = prepare_launch(kernel, cache, threads, smem, &resident);
+    if (e != cudaSuccess) return (int)e;
+    if (blocks > resident) return (int)cudaErrorCooperativeLaunchTooLarge;
+    Args args = a;
+    void* params[] = {&args};
+    e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(blocks), dim3(threads), params, smem,
+                                    stream);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+}
+
 template <typename T, int MODE, int R, bool LERP, bool TRI>
 int run_sweep(const SweepArgs& a, int blocks, cudaStream_t stream) {
     auto kernel = sweep_kernel<T, MODE, R, LERP, TRI>;
@@ -692,19 +1073,44 @@ int run_sweep(const SweepArgs& a, int blocks, cudaStream_t stream) {
                                      a.rows_per_block, a.stages);
     if (smem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
     const int threads = 32 * min(a.rows_per_block, kMaxWarps);
-    // every block must be resident at once; the runtime refuses the launch
-    // otherwise, and so does this check, before it
-    int resident = 0;
-    cudaError_t e = prepare_launch(kernel, cache, threads, smem, &resident);
-    if (e != cudaSuccess) return (int)e;
-    if (blocks > resident) return (int)cudaErrorCooperativeLaunchTooLarge;
-    SweepArgs args = a;
-    void* params[] = {&args};
-    e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                    dim3(blocks), dim3(threads), params, smem,
-                                    stream);
-    if (e != cudaSuccess) return (int)e;
-    return (int)cudaGetLastError();
+    return launch_cooperative(kernel, cache, a, blocks, threads, smem,
+                              stream);
+}
+
+template <typename T, int MODE, int TR>
+int run_sweep_wide(const WideArgs& a, int blocks, cudaStream_t stream) {
+    auto kernel = sweep_kernel_wide<T, MODE, TR>;
+    static std::map<int, LaunchCache> cache;
+    const size_t smem = wide_shared_bytes(8 * TR, sizeof(T), a.stages);
+    if (smem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
+    return launch_cooperative(kernel, cache, a, blocks, kWideThreads, smem,
+                              stream);
+}
+
+template <typename T, int MODE>
+int dispatch_wide_rows(int rows_per_block, const WideArgs& a, int blocks,
+                       cudaStream_t s) {
+    switch (rows_per_block) {
+        case 8: return run_sweep_wide<T, MODE, 1>(a, blocks, s);
+        case 16: return run_sweep_wide<T, MODE, 2>(a, blocks, s);
+        case 32: return run_sweep_wide<T, MODE, 4>(a, blocks, s);
+        case 64: return run_sweep_wide<T, MODE, 8>(a, blocks, s);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int dispatch_wide(int mode, int rows_per_block, const WideArgs& a,
+                  int blocks, cudaStream_t s) {
+    switch (mode) {
+        case kFwd: return dispatch_wide_rows<T, kFwd>(rows_per_block, a,
+                                                      blocks, s);
+        case kBwd: return dispatch_wide_rows<T, kBwd>(rows_per_block, a,
+                                                      blocks, s);
+        case kBwdSub: return dispatch_wide_rows<T, kBwdSub>(rows_per_block, a,
+                                                            blocks, s);
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int MODE, bool LERP, bool TRI>
@@ -790,4 +1196,42 @@ extern "C" int hh_sweep(int mode, int g_bf16, const void* g_re,
     if (g_bf16)
         return dispatch_coupling<__nv_bfloat16>(mode, nrhs, tri, a, blocks, s);
     return dispatch_coupling<float>(mode, nrhs, tri, a, blocks, s);
+}
+
+// The wide sweep (`sweep_kernel_wide`): dense G (panel_stride between
+// panels), diagonal coupling c (S, n), nrhs >= 1 right-hand sides in ONE
+// cooperative launch.  mode, g_bf16, g_re, g_im, ld, n, S, row_stride, u,
+// c, carry0, out as for hh_sweep.  scratch: 2 * nrhs * ld complex64 words
+// of device memory, pad columns [n, ld) of every row zero (the kernel
+// writes only columns below n).  row_groups, rows_per_block (8, 16, 32 or
+// 64), slices, stages (2..4): the launch plan (ops/kernels/sweep.py
+// `wide_plan`): the row groups cover the n rows exactly once, the slices
+// of 16 the nrhs right-hand sides, and the grid is row_groups * slices
+// blocks.  Returns a CUDA error code (0 on success), also when the runtime
+// refuses the launch.
+extern "C" int hh_sweep_wide(int mode, int g_bf16, const void* g_re,
+                             const void* g_im, long long panel_stride, int ld,
+                             int n, int S, int nrhs, long long row_stride,
+                             const void* u, const void* c, const void* carry0,
+                             void* out, void* scratch, int row_groups,
+                             int rows_per_block, int slices, int stages,
+                             void* stream) {
+    if (ld % 8 != 0 || ld < n || n <= 0 || S <= 0 || nrhs < 1
+            || row_stride < (long long)nrhs * n || scratch == nullptr
+            || row_groups < 1 || (long long)row_groups * rows_per_block < n
+            || (long long)(row_groups - 1) * rows_per_block >= n
+            || slices < 1 || (long long)slices * kSliceRhs < nrhs
+            || (long long)(slices - 1) * kSliceRhs >= nrhs
+            || stages < kWideMinStages || stages > kWideMaxStages)
+        return (int)cudaErrorInvalidValue;
+    const WideArgs a = {g_re, g_im, panel_stride, ld, n, S, nrhs, row_stride,
+                        (const float2*)u, (const float2*)c,
+                        (const float2*)carry0, (float2*)out,
+                        (float2*)scratch, row_groups, stages};
+    const int blocks = row_groups * slices;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (g_bf16)
+        return dispatch_wide<__nv_bfloat16>(mode, rows_per_block, a, blocks,
+                                            s);
+    return dispatch_wide<float>(mode, rows_per_block, a, blocks, s);
 }

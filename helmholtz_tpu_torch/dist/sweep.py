@@ -15,8 +15,10 @@ vector's float type, float32 lerp weights applied to the two samples'
 products.
 
 Each rank's band is ONE sweep through the sweep kernel (K2,
-`ops.kernels.sweep.sweep`) per direction, R <= 4 right-hand sides a launch,
-with the received carry as `carry0`: dense or band-local lerp tables,
+`ops.kernels.sweep.sweep`) per direction, in the launches that
+`launch_widths` gives (one for the whole batch over a dense band with
+diagonal coupling, else chunks of at most four), with the received carry
+as `carry0`: dense or band-local lerp tables,
 diagonal (5-point) or tridiagonal (9-point) coupling, modes fwd / bwd /
 bwd_sub.  On the CPU the wrapper runs its plain loop.  The F rows j < b and
 row b live on rank 0 (b < n_loc): their G panels are zero (zero weights
@@ -29,13 +31,14 @@ import functools
 
 import torch
 
-from ..ops.kernels.sweep import MAX_WIDTH, panel_matvec, sweep
+from ..ops.kernels.sweep import (_sm_count, launch_widths, panel_matvec,
+                                  sweep)
 from ..precond.sweeping import _block_thomas_solve_multi
 from ..precond.sweeping9 import _block_thomas_solve9, _tridiag_matvec
 from . import comm
 from .partition import DistSweepState9
 
-#: sweep chunks (ceil(B / MAX_WIDTH) for a batch of B) of the applies made
+#: sweep chunks (`launch_widths` of the band's batch) of the applies made
 #: in this process: each is one launch of the sweep kernel per direction
 apply_chunks = 0
 
@@ -71,7 +74,9 @@ def dist_apply_preconditioner(mesh, S, f_band: torch.Tensor) -> torch.Tensor:
     b = S.b
     r, D = mesh.rank, mesh.size
     to_sbn = lambda x: x.transpose(0, 1).contiguous()
-    apply_chunks += -(-B // MAX_WIDTH)
+    apply_chunks += len(launch_widths(B, n, S.G_re.element_size(),
+                                      S.g_lo is not None, False, tri,
+                                      _sm_count(u.device)))
 
     # H_F solve and the row-b correction (rank 0; b < n_loc)
     if r == 0:

@@ -38,6 +38,10 @@ _SIGNATURES = {
                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                  ctypes.c_longlong, _P, _P, _P, _P, ctypes.c_int, _P, _P, _P,
                  ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    "hh_sweep_wide": [ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_longlong, _P, _P, _P, _P, _P, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     "hh_gj_inverse": [_P, _P, ctypes.c_int, ctypes.c_int, _P],
     "hh_bsr_spmm": [_P] * 8,
 }

@@ -11,14 +11,19 @@ where c[k] is a diagonal (a row of n, the 5-point scheme's inter-layer
 coupling) or a tridiagonal matrix (three rows [sub, diag, sup] of n, the
 9-point scheme's).
 
-Bound: bytes.  Each step streams one n x n complex panel of G (two real
-planes, float32 or bfloat16) against R vectors that depend on the step
-before.  One call here is one sweep and ONE cooperative launch: the steps
+Bound: bytes up to about R = 10 right-hand sides (bf16 G; 20 for float32),
+operations above.  Each step streams one n x n complex panel of G (two
+real planes, float32 or bfloat16) against R vectors that depend on the
+step before.  A launch is one sweep and ONE cooperative launch: the steps
 run inside a persistent kernel, one grid-wide barrier a step.  Each block
 owns a fixed range of rows (`launch_plan`) and copies its rows of the next
 step's panel into a ring of shared-memory stages before it waits at the
 barrier, so the stream of G does not wait on the carry; see the source
-note.
+note.  Which launches a call makes is `launch_widths`' rule: a dense stack
+with diagonal coupling and R > 4 goes to the wide kernel in ONE launch
+(`wide_plan`: blocks own rows x slices of 16 right-hand sides, register
+tiles, k tiles through a shared-memory ring); every other call runs the
+kernel of widths 1..4, a larger batch in chunks of four.
 
 Layout: the planes are (Mg, n, ld) with row pitch `g_ld(n)` elements and
 zero pad columns, so every row starts 16-byte aligned.
@@ -43,9 +48,25 @@ from . import build
 
 MODES = ("fwd", "bwd", "bwd_sub")
 
-#: right-hand sides one launch of the kernel carries (its template widths
-#: are 1..MAX_WIDTH); `sweep` walks a larger batch in chunks of this many
+#: right-hand sides one launch of the narrow kernel carries (its template
+#: widths are 1..MAX_WIDTH); where the wide kernel does not take a batch,
+#: `sweep` walks it in chunks of this many (`launch_widths`)
 MAX_WIDTH = 4
+
+#: the wide kernel (`sweep_kernel_wide`): right-hand sides of a block's
+#: slice, its warps (they split the columns), the bytes of a G row in one k
+#: tile, the rows a lane carries (its template widths; a block takes 8 x
+#: that many rows), and the stages of its shared-memory ring
+WIDE_SLICE = 16
+WIDE_WARPS = 8
+WIDE_TILE_ROW_BYTES = 256
+WIDE_ROW_TILES = (1, 2, 4, 8)
+WIDE_STAGES = (4, 3, 2)
+
+#: the SMs of the card the port is written for (an H100): the launch plans
+#: of a device that is not a card, so that counts made on the CPU are the
+#: card's
+H100_SMS = 132
 
 #: the most dynamic shared memory a block gets on the card, in bytes
 MAX_SHARED_BYTES = 232448
@@ -91,8 +112,10 @@ def __getattr__(name: str):
     if name == "launches_by_mode":
         return {m: total(lambda mode, *rest: mode == m) for m in MODES}
     if name == "launches_by_width":
+        widths = set(range(1, MAX_WIDTH + 1)) | {
+            key[1] for key in launches_by_variant}
         return {w: total(lambda mode, width, *rest: width == w)
-                for w in range(1, MAX_WIDTH + 1)}
+                for w in sorted(widths)}
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -150,8 +173,79 @@ def _operand_bytes(width: int, ld: int) -> int:
     return operand
 
 
+@dataclasses.dataclass(frozen=True)
+class WidePlan:
+    """How one sweep of the wide kernel is laid on the card: `row_groups`
+    groups of `rows_per_block` rows (the last fewer) times `slices` slices
+    of WIDE_SLICE right-hand sides (the last padded), one block each, block
+    b owning row group b % row_groups and slice b // row_groups; `stages`
+    stages of the k-tile ring; `shared_bytes` the dynamic shared memory a
+    block takes.  `csrc/sweep.cu` computes the same bytes from the same
+    numbers."""
+    blocks: int
+    row_groups: int
+    rows_per_block: int
+    slices: int
+    stages: int
+    shared_bytes: int
+
+
+def wide_shared_bytes(rows_per_block: int, g_bytes: int, stages: int) -> int:
+    """Shared memory of a wide block: `stages` ring stages, each a k tile of
+    WIDE_TILE_ROW_BYTES of every G row (two planes) and the same columns of
+    the slice's operand rows, each row padded by 16 bytes; then the warps'
+    partial sums (complex64)."""
+    tile_k = WIDE_TILE_ROW_BYTES // g_bytes
+    stage = (2 * rows_per_block * (WIDE_TILE_ROW_BYTES + 16)
+             + WIDE_SLICE * (tile_k * 8 + 16))
+    return stages * stage + WIDE_WARPS * rows_per_block * WIDE_SLICE * 8
+
+
+@functools.lru_cache(maxsize=None)
+def wide_plan(n: int, width: int, g_bytes: int,
+              sm_count: int) -> WidePlan | None:
+    """The wide kernel's plan for a sweep of n rows and `width` right-hand
+    sides over G of `g_bytes` bytes an element, on a card of `sm_count`
+    SMs: ceil(width / 16) slices, and the fewest rows a block (8 x the
+    smallest row tile) whose row groups times slices fit one block an SM,
+    with as many ring stages as fit the shared memory.  None where no row
+    tile fits."""
+    slices = -(-width // WIDE_SLICE)
+    for tile in WIDE_ROW_TILES:
+        rows = 8 * tile
+        groups = -(-n // rows)
+        if groups * slices > sm_count:
+            continue
+        for stages in WIDE_STAGES:
+            smem = wide_shared_bytes(rows, g_bytes, stages)
+            if smem <= MAX_SHARED_BYTES:
+                return WidePlan(groups * slices, groups, rows, slices, stages,
+                                smem)
+        return None
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def launch_widths(R: int, n: int, g_bytes: int, lerp: bool, shared: bool,
+                  tri: bool, sm_count: int) -> tuple:
+    """The widths of the launches one sweep of R right-hand sides makes, in
+    order: ONE launch of the wide kernel for a dense stack with diagonal
+    coupling and R > MAX_WIDTH where its plan fits (n rows, G of `g_bytes`
+    bytes an element, `sm_count` SMs); otherwise chunks of at most
+    MAX_WIDTH through the narrow kernel (a shared panel, lerp tables,
+    tridiagonal coupling, R <= 4, or no wide plan)."""
+    if (R > MAX_WIDTH and not (lerp or shared or tri)
+            and wide_plan(n, R, g_bytes, sm_count) is not None):
+        return (R,)
+    return tuple(min(MAX_WIDTH, R - r0) for r0 in range(0, R, MAX_WIDTH))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
+    """The SMs of the card `device` names; H100_SMS for a device that is
+    not a card."""
+    if device.type != "cuda":
+        return H100_SMS
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -331,10 +425,15 @@ def sweep(G_re, G_im, u, c, carry0, *, mode: str, g_lo=None,
                  (`SweepingPreconditioner` checks it once); zero weights
                  are allowed.
 
-    One launch of the kernel carries at most MAX_WIDTH = 4 right-hand sides
-    (32 KB of shared memory at ld = 1024).  A larger batch is walked in
-    chunks of 4, each chunk a sweep of its own that streams G again; the
-    launch counters count each chunk.  A launch the runtime refuses raises.
+    The launches follow `launch_widths`: a dense stack with diagonal
+    coupling takes any R > 4 in ONE launch of the wide kernel, which reads
+    each step's panel once for the whole batch (where its plan does not fit
+    the card, chunks of four, as below).  The narrow kernel carries at most
+    MAX_WIDTH = 4 right-hand sides a launch (32 KB of shared memory at
+    ld = 1024); with a shared panel, lerp tables or tridiagonal coupling a
+    larger batch is walked in chunks of 4, each chunk a sweep of its own
+    that streams G again.  The launch counters count each launch, by its
+    width.  A launch the runtime refuses raises.
 
     Returns the (S, n) / (S, R, n) updated rows in natural order.
     """
@@ -347,20 +446,24 @@ def sweep(G_re, G_im, u, c, carry0, *, mode: str, g_lo=None,
     out = torch.empty_like(u)
     ld = g_ld(n)
     tri = c.ndim == 3
+    lib = build.library()
+    sm_count = _sm_count(u.device)
+    g_bytes = G_re.element_size()
+    widths = launch_widths(R, n, g_bytes, lerp, shared, tri, sm_count)
+    if widths[0] > MAX_WIDTH:
+        return _sweep_wide(lib, G_re, G_im, u, c, carry0, out, mode,
+                           wide_plan(n, R, g_bytes, sm_count))
     # two rows of scratch: fwd with tridiagonal coupling parks each step's
     # raw product there for the next step to finish, bwd / bwd_sub with
     # diagonal coupling the next step's operand (see the source note)
     scratch = (torch.empty((2, min(R, MAX_WIDTH), n), dtype=u.dtype,
                            device=u.device)
                if tri == (mode == "fwd") else None)
-    lib = build.library()
-    sm_count = _sm_count(u.device)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for r0 in range(0, R, MAX_WIDTH):
-            width = min(MAX_WIDTH, R - r0)
-            plan = launch_plan(n, width, G_re.element_size(), lerp, shared,
-                               sm_count)
+        r0 = 0
+        for width in widths:
+            plan = launch_plan(n, width, g_bytes, lerp, shared, sm_count)
             skip = r0 * n * 8           # bytes to the chunk's first row
             status = lib.hh_sweep(
                 MODES.index(mode), int(G_re.dtype == torch.bfloat16),
@@ -375,4 +478,28 @@ def sweep(G_re, G_im, u, c, carry0, *, mode: str, g_lo=None,
             build.check(status, f"sweep[{mode}]")
             _count(mode, width, lerp, tri, shared)
             plans_by_variant[(mode, width, lerp, tri, shared)] = plan
+            r0 += width
+    return out
+
+
+def _sweep_wide(lib, G_re, G_im, u, c, carry0, out, mode: str,
+                plan: WidePlan) -> torch.Tensor:
+    """One launch of the wide kernel over a dense stack with diagonal
+    coupling, all R right-hand sides of u (S, R, n) at once, into out."""
+    S, R, n = u.shape
+    ld = g_ld(n)
+    # the operand of each step at pitch ld, ping-pong; the kernel writes
+    # columns below n only, so the pad stays zero
+    scratch = torch.zeros((2, R, ld), dtype=u.dtype, device=u.device)
+    with torch.cuda.device(u.device):
+        status = lib.hh_sweep_wide(
+            MODES.index(mode), int(G_re.dtype == torch.bfloat16),
+            G_re.data_ptr(), G_im.data_ptr(), n * ld, ld, n, S, R, R * n,
+            u.data_ptr(), c.data_ptr(), carry0.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), plan.row_groups, plan.rows_per_block,
+            plan.slices, plan.stages,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(status, f"sweep_wide[{mode}]")
+    _count(mode, R, False, False, False)
+    plans_by_variant[(mode, R, False, False, False)] = plan
     return out

@@ -519,9 +519,13 @@ def apply_preconditioner_multi(P: SweepingPreconditioner, F: torch.Tensor,
                                impl: str = "auto") -> torch.Tensor:
     """Batched-RHS apply: F of shape (B, L, n) -> (B, L, n), F untouched.
 
-    The whole batch rides ONE stream of the G stack per sweep (the sweep
-    kernel multiplies each loaded piece of G into every right-hand side), so
-    B solves cost about one solve of device-memory traffic; the block-Thomas
+    Over a dense G stack the whole batch rides ONE stream of G per sweep,
+    in one launch of the sweep kernel whatever B (the wide kernel above
+    four right-hand sides: each loaded piece of G is multiplied into every
+    right-hand side of a block's slice), so B solves cost about one solve
+    of device-memory traffic.  Over a sample-compressed stack the launches
+    carry at most four right-hand sides, and a larger batch reads G once a
+    chunk of four (`ops.kernels.sweep.launch_widths`).  The block-Thomas
     solves become (n, n) @ (n, B) products.  `impl` as in
     `apply_preconditioner`.
     """

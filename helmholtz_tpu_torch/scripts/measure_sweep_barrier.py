@@ -2,19 +2,23 @@
 
     python3 -m helmholtz_tpu_torch.scripts.measure_sweep_barrier
 
-Builds `csrc/sweep.cu` three ways into `build/`: as it
+Builds `csrc/sweep.cu` four ways into `build/`: as it
 is (cooperative_groups' grid.sync() a step), with a generation barrier of
-release / acquire atomics in place of grid.sync(), and with no grid barrier
-at all.  The last gives WRONG results (its relative error is printed) and
-stands only for the time of a step without its barrier.  Each build is
-timed at n = 1023 over bf16 G in turns, for the sweep variants the
-full-width paths launch, and prints one JSON line a variant and turn, after
-the card's name and power limit.  Each variant's source is the package's
+release / acquire atomics in place of the narrow kernel's grid.sync(), with
+no grid barrier a step at all (narrow and wide kernel), and with the wide
+kernel's products left out.  The last two give WRONG results (their
+relative errors are printed): they stand only for the time of a step
+without its barrier, and for what a wide step spends besides its FMAs (its
+copies, epilogue and barrier).  Each build is timed at n = 1023 over bf16
+G in turns, for the sweep variants the full-width paths launch and the wide
+kernel at 16 and 64 right-hand sides, and prints one JSON line a variant
+and turn, after the card's name and power limit.  Each variant's source is the package's
 with its barrier replaced; a replacement whose anchor is not found exactly
 once raises, so no variant is the unchanged kernel under another name.
 Needs one CUDA device.
 """
 import ctypes
+import itertools
 import json
 import subprocess
 import sys
@@ -78,12 +82,18 @@ def variants():
                         "gen_start() : 0;")
     gen2 = replace_once(gen2, "grid.sync();",
                         "gen_barrier2(gridDim.x, my_gen);")
-    return {"grid_sync": src, "generation": gen2,
-            "none": replace_once(src, "grid.sync();", "__syncthreads();")}
+    none = replace_once(src, "grid.sync();", "__syncthreads();")
+    none = replace_once(none, "if (next) all_blocks.sync();",
+                        "if (next) __syncthreads();")
+    no_product = replace_once(src, "            wide_tile_product<T, TR>(",
+                              "            if (false) wide_tile_product<T, TR>(")
+    return {"grid_sync": src, "generation": gen2, "none": none,
+            "no_product": no_product}
 
 
 def build_all():
-    """Compile the variants in parallel; returns their hh_sweep entries."""
+    """Compile the variants in parallel; returns their libraries, with the
+    hh_sweep and hh_sweep_wide entries typed."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in variants().items():
@@ -99,10 +109,11 @@ def build_all():
         out, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        fn = ctypes.CDLL(str(so)).hh_sweep
-        fn.argtypes = build._SIGNATURES["hh_sweep"]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+        lib = ctypes.CDLL(str(so))
+        for entry in ("hh_sweep", "hh_sweep_wide"):
+            getattr(lib, entry).argtypes = build._SIGNATURES[entry]
+            getattr(lib, entry).restype = ctypes.c_int
+        fns[name] = lib
     return fns
 
 
@@ -137,7 +148,8 @@ def main():
                 c.data_ptr(), int(tri), carry0.data_ptr(), out.data_ptr(),
                 scratch.data_ptr(), plan.blocks, plan.rows_per_block,
                 plan.stages, torch.cuda.current_stream().cuda_stream)
-        ms = time_ms(lambda: build.check(fn(*args), "sweep variant"), 5)
+        ms = time_ms(lambda: build.check(fn.hh_sweep(*args),
+                                         "sweep variant"), 5)
         kw = dict(g_lo=tables[0], g_w=tables[1]) if lerp else {}
         _, rel = rel_err(out, k2.plain_sweep(*planes, u, c, carry0,
                                                  mode=mode, **kw))
@@ -148,16 +160,44 @@ def main():
              ("fwd", 4, False, False), ("bwd", 4, False, False),
              ("fwd", None, True, False), ("bwd", None, True, False),
              ("fwd", 4, True, True), ("bwd", 4, False, True)]
+    def run_wide(fn, mode, R):
+        ld = G16[0].shape[-1]
+        S = G16[0].shape[0] - (1 if mode == "fwd" else 0)
+        u, c, carry0 = sweep_inputs(n, S, R, gen, dev)
+        out = torch.empty_like(u)
+        scratch = torch.zeros((2, R, ld), dtype=u.dtype, device=dev)
+        plan = k2.wide_plan(n, R, 2, sms)
+        args = (k2.MODES.index(mode), 1, G16[0].data_ptr(),
+                G16[1].data_ptr(), n * ld, ld, n, S, R, R * n, u.data_ptr(),
+                c.data_ptr(), carry0.data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), plan.row_groups, plan.rows_per_block,
+                plan.slices, plan.stages,
+                torch.cuda.current_stream().cuda_stream)
+        ms = time_ms(lambda: build.check(fn.hh_sweep_wide(*args),
+                                         "wide sweep variant"), 5)
+        _, rel = rel_err(out, k2.plain_sweep(*G16, u, c, carry0, mode=mode))
+        return ms, S, rel
+
     for turn in range(2):
         order = list(fns.items())
         for name, fn in (order if turn == 0 else order[::-1]):
             for mode, R, tri, lerp in cases:
+                if name == "no_product":
+                    continue       # the narrow kernel is as it is there
                 ms, S, rel = run(fn, S16 if lerp else G16, mode, R, tri, lerp)
                 print(json.dumps({"turn": turn, "barrier": name,
                                   "mode": mode, "R": R, "tri": tri,
                                   "lerp": lerp, "ms": ms,
                                   "step_us": ms / S * 1e3, "rel_err": rel}),
                       flush=True)
+            for mode, R in itertools.product(("fwd", "bwd"), (16, 64)):
+                if name == "generation":
+                    continue       # the wide kernel is as it is there
+                ms, S, rel = run_wide(fn, mode, R)
+                print(json.dumps({"turn": turn, "barrier": name,
+                                  "kernel": "wide", "mode": mode, "R": R,
+                                  "ms": ms, "step_us": ms / S * 1e3,
+                                  "rel_err": rel}), flush=True)
 
 
 if __name__ == "__main__":

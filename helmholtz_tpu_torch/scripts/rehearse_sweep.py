@@ -1,6 +1,7 @@
 """Rehearse the sweep kernel (`csrc/sweep.cu`, K2) on the host CPU.
 
     python3 -m helmholtz_tpu_torch.scripts.rehearse_sweep [--stages 0 1 2]
+                                                          [--wide-only]
 
 A cooperative launch hangs the card when any block skips a grid-wide
 barrier that another reaches, and a chip call that hangs is expensive.
@@ -16,7 +17,10 @@ signature as the wrapper, on host tensors, with the launch plan forced to
 0, 1 or 2 stages of G in shared memory and to a few blocks, and holds every
 result against `ops.kernels.sweep.plain_sweep`: dense, shared and
 sample-compressed G, float32 and bfloat16, diagonal and tridiagonal
-coupling, every mode, one and three right-hand sides, at n = 17 and 33.
+coupling, every mode, one and three right-hand sides, at n = 17 and 33;
+and the wide kernel (`hh_sweep_wide`) with every row tile and ring depth
+forced, dense G, 5 to 29 right-hand sides, at n = 17 and 203, its first
+five right-hand sides also alone, for equal bits.
 The same indexing and barrier counts as on the card run; the arithmetic is
 the host's float32 (the sums' order is the kernel's).  A missed barrier
 shows as a hang here (the script's own time limit ends it) instead of on
@@ -59,7 +63,7 @@ STUB = r"""
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __align__(x) alignas(x)
 
 struct dim3 {
@@ -115,6 +119,12 @@ inline float exchange(float v, int from) {
 #define gridDim (hh::gdim)
 
 inline void __syncthreads() { hh::block->bar.arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+    hh::block->warps[threadIdx.x / 32].bar.arrive_and_wait();
+}
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __shfl_xor_sync(unsigned, float v, int off) {
     return hh::exchange(v, (threadIdx.x & 31) ^ off);
 }
@@ -202,6 +212,9 @@ def _translate(src: str) -> str:
         (r"extern __shared__ __align__\(16\) float smem\[\];",
          "float* smem = reinterpret_cast<float*>("
          "hh::block->shared.data());"),
+        (r"extern __shared__ __align__\(16\) unsigned char wide_smem\[\];",
+         "unsigned char* wide_smem = reinterpret_cast<unsigned char*>("
+         "hh::block->shared.data());"),
         (r"const unsigned int s =\s*static_cast<unsigned int>\("
          r"__cvta_generic_to_shared\(smem\)\);\s*asm volatile\("
          r"\"cp\.async\.cg\.shared\.global \[%0\], \[%1\], 16;\\n\"\s*"
@@ -240,6 +253,9 @@ def build() -> ctypes.CDLL:
     so.hh_sweep.argtypes = [i, i, p, p, ll, i, i, i, i, ll, p, p, p, p, i,
                             p, p, p, i, i, i, p]
     so.hh_sweep.restype = i
+    so.hh_sweep_wide.argtypes = [i, i, p, p, ll, i, i, i, i, ll, p, p, p, p,
+                                 p, i, i, i, i, p]
+    so.hh_sweep_wide.restype = i
     so.hh_rehearsal_set_sms.argtypes = [i]
     return so
 
@@ -303,17 +319,80 @@ def run_case(so, n, kind, bf16, tri, mode, R, stages, sms, gen):
     return err, blocks, rows
 
 
+def wide_sweep(so, G, u, c, carry0, mode, rows, stages):
+    """One call of `hh_sweep_wide` on host tensors, with `rows` rows a block
+    and `stages` ring stages forced; returns the output."""
+    S, R, n = u.shape
+    ld = k2.g_ld(n)
+    groups, slices = -(-n // rows), -(-R // k2.WIDE_SLICE)
+    out = torch.empty_like(u)
+    scratch = torch.zeros((2, R, ld), dtype=u.dtype)
+    # the card holds the grid whatever its size (the narrow cases shrink
+    # it; the launch cache keeps the first count it is told)
+    so.hh_rehearsal_set_sms(k2.H100_SMS)
+    status = so.hh_sweep_wide(
+        k2.MODES.index(mode), int(G[0].dtype == torch.bfloat16),
+        G[0].data_ptr(), G[1].data_ptr(), n * ld, ld, n, S, R, R * n,
+        u.data_ptr(), c.data_ptr(), carry0.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), groups, rows, slices, stages, None)
+    if status != 0:
+        raise RuntimeError(f"hh_sweep_wide returned {status}")
+    if scratch[..., n:].any():
+        raise RuntimeError("hh_sweep_wide wrote the scratch rows' pad")
+    return out
+
+
+def run_wide_case(so, n, bf16, mode, R, rows, stages, gen, panels=12):
+    """The wide kernel over `panels` dense panels against the plain version,
+    and its first five right-hand sides again as a batch of five, which
+    must give the same bits; returns the relative error."""
+    G = _planes(panels, n, gen, bf16)
+    S = panels - 1 if mode == "fwd" else panels
+    u, c, carry0 = _inputs(n, S, R, False, gen)
+    ref = k2.plain_sweep(*G, u, c, carry0, mode=mode)
+    out = wide_sweep(so, G, u, c, carry0, mode, rows, stages)
+    few = wide_sweep(so, G, u[:, :5].contiguous(), c,
+                     carry0[:5].contiguous(), mode, rows, stages)
+    if not torch.equal(few, out[:, :5]):
+        raise RuntimeError(f"n={n} {mode} R={R}: five right-hand sides alone"
+                           " differ from the same five in the batch")
+    return ((out - ref).abs().max() / ref.abs().max()).item()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stages", type=int, nargs="+", default=[0, 1, 2])
     ap.add_argument("--ns", type=int, nargs="+", default=[17, 33])
     ap.add_argument("--sms", type=int, default=3,
                     help="SMs of the pretended card: the grid's blocks")
+    ap.add_argument("--wide-only", action="store_true",
+                    help="rehearse only the wide kernel")
     args = ap.parse_args(argv)
     so = build()
     gen = torch.Generator().manual_seed(0)
     worst, cases = 0.0, 0
-    for n, stages in itertools.product(args.ns, args.stages):
+    # the wide kernel: every mode and type, R = 5, 16 and 29 (one and two
+    # slices), each row tile with every ring depth, at n = 17 (one k tile)
+    # and n = 203 (two bf16 tiles, four f32 ones, the last partial, a row
+    # group cut at n)
+    for n, rows_list in ((17, (8, 16)), (203, (32, 64))):
+        for rows, stages in itertools.product(rows_list, (2, 3, 4)):
+            for bf16, mode, R in itertools.product(
+                    (False, True), k2.MODES, (5, 16, 29)):
+                if (k2.wide_shared_bytes(rows, 2 if bf16 else 4, stages)
+                        > k2.MAX_SHARED_BYTES):
+                    continue      # the entry point refuses it, as the plan
+                err = run_wide_case(so, n, bf16, mode, R, rows, stages, gen)
+                cases += 1
+                worst = max(worst, err)
+                if not err <= TOL:
+                    print(f"FAIL wide n={n} rows={rows} stages={stages} "
+                          f"bf16={bf16} {mode} R={R}: {err:.3e}", flush=True)
+                    return 1
+            print(f"wide n={n}: {rows} rows a block, {stages} stages, worst "
+                  f"relative error so far {worst:.3e}", flush=True)
+    for n, stages in itertools.product(
+            () if args.wide_only else args.ns, args.stages):
         for kind, bf16, tri, mode, R in itertools.product(
                 ("dense", "shared", "lerp"), (False, True), (False, True),
                 k2.MODES, (None, 3)):

@@ -201,6 +201,94 @@ def test_sweep_launch_plan_owns_every_row_once(n, g_dtype):
             assert 1 <= plan.stages <= want
 
 
+@pytest.mark.parametrize("n", [17, 33, 1023, 2047])
+@pytest.mark.parametrize("R", [5, 8, 16, 29, 33, 64])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+def test_sweep_wide_plan_owns_every_cell_once(n, R, g_dtype):
+    """The wide kernel's plan on a 132-SM card: block b owns row group
+    b % row_groups and slice b // row_groups, and the blocks own every
+    (row, right-hand side) of a step exactly once; at most one block an
+    SM; the shared memory fits a block and is the sum the source
+    computes."""
+    g_bytes = torch.empty((), dtype=g_dtype).element_size()
+    plan = k2.wide_plan(n, R, g_bytes, 132)
+    assert plan is not None
+    rows, slice_ = plan.rows_per_block, k2.WIDE_SLICE
+    assert rows in tuple(8 * t for t in k2.WIDE_ROW_TILES)
+    assert plan.blocks == plan.row_groups * plan.slices <= 132
+    assert (plan.row_groups - 1) * rows < n <= plan.row_groups * rows
+    assert (plan.slices - 1) * slice_ < R <= plan.slices * slice_
+    owned = [(row, r) for b in range(plan.blocks)
+             for row in range((b % plan.row_groups) * rows,
+                              (b % plan.row_groups + 1) * rows)
+             for r in range((b // plan.row_groups) * slice_,
+                            (b // plan.row_groups + 1) * slice_)
+             if row < n and r < R]
+    assert sorted(owned) == list(itertools.product(range(n), range(R)))
+    assert plan.stages in k2.WIDE_STAGES
+    assert plan.shared_bytes == k2.wide_shared_bytes(rows, g_bytes,
+                                                     plan.stages)
+    assert plan.shared_bytes <= k2.MAX_SHARED_BYTES
+    # the smallest row tile whose grid fits: one fewer would not
+    if rows > 8:
+        assert -(-n // (rows // 2)) * plan.slices > 132
+
+
+def test_sweep_wide_plan_at_the_main_shapes():
+    """n = 1023: 64 right-hand sides as 32 row groups x 4 slices of 16, 16
+    as row groups alone; n = 2047, 64: 32 groups of 64 rows x 4 slices;
+    128 right-hand sides at n = 2047 fit no row tile of 132 SMs."""
+    p64 = k2.wide_plan(1023, 64, 2, 132)
+    assert (p64.row_groups, p64.rows_per_block, p64.slices) == (32, 32, 4)
+    p16 = k2.wide_plan(1023, 16, 2, 132)
+    assert (p16.row_groups, p16.rows_per_block, p16.slices) == (128, 8, 1)
+    p2047 = k2.wide_plan(2047, 64, 2, 132)
+    assert (p2047.row_groups, p2047.rows_per_block, p2047.slices) \
+        == (32, 64, 4)
+    assert k2.wide_plan(2047, 128, 2, 132) is None
+
+
+@pytest.mark.parametrize("lerp,shared,tri", [
+    (False, False, False), (False, False, True), (True, False, False),
+    (True, False, True), (False, True, False), (False, True, True)])
+def test_sweep_launch_widths(lerp, shared, tri):
+    """One launch of the whole batch for a dense stack with diagonal
+    coupling and more than four right-hand sides; chunks of at most four,
+    in order, for every other case and for a batch that no wide plan
+    fits."""
+    for R in range(1, 70):
+        widths = k2.launch_widths(R, 1023, 2, lerp, shared, tri, 132)
+        chunks = tuple(min(4, R - r0) for r0 in range(0, R, 4))
+        if R > 4 and not (lerp or shared or tri):
+            assert widths == (R,)
+        else:
+            assert widths == chunks
+    assert k2.launch_widths(128, 2047, 2, lerp, shared, tri, 132) == \
+        tuple([4] * 32)
+
+
+@pytest.mark.parametrize("B", [1, 4, 5, 8])
+def test_dist_apply_chunks_follow_launch_widths(factored, B):
+    """The distributed apply counts one sweep chunk for each launch that
+    `launch_widths` gives its band's batch: one for a dense stack at any
+    width (one rank here, on the CPU)."""
+    from helmholtz_tpu_torch.dist import partition
+    from helmholtz_tpu_torch.dist import sweep as dsweep
+
+    P_t = factored[3]
+    mesh = partition.make_mesh(1, device="cpu")
+    S = partition.dist_state_from_preconditioner(P_t, mesh)
+    F = torch.from_numpy(random_grid(20 + B, (B, N, N)))
+    dsweep.reset_counts()
+    got = dsweep.dist_apply_preconditioner(mesh, S, F)
+    want = k2.launch_widths(B, N, S.G_re.element_size(), False, False,
+                            False, k2.H100_SMS)
+    assert dsweep.apply_chunks == len(want) == 1
+    np.testing.assert_allclose(
+        to_np(got), to_np(tsweep.apply_preconditioner_multi(P_t, F)),
+        rtol=1e-12, atol=0)
+
+
 def test_sweep_launch_plan_refuses_an_operand_too_large():
     with pytest.raises(ValueError, match="shared memory"):
         k2.launch_plan(8192, 4, 2, False, False, 132)
