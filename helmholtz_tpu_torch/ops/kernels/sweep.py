@@ -87,16 +87,34 @@ launches_by_variant: dict = {}
 #: `launches_by_variant`: what the card ran, beside how often
 plans_by_variant: dict = {}
 
+#: bytes of G the launches of `sweep` streamed in this process, by the keys
+#: of `launches_by_variant`: each launch adds its `g_stream_bytes`
+g_bytes_by_variant: dict = {}
+
 
 def reset_counts() -> None:
     launches_by_variant.clear()
     plans_by_variant.clear()
+    g_bytes_by_variant.clear()
+
+
+def g_stream_bytes(n: int, steps: int, g_itemsize: int, *,
+                   lerp: bool = False, shared: bool = False) -> int:
+    """Bytes of G one launch of `steps` steps streams: one panel a step (the
+    two samples of a pair with lerp tables, one panel for the whole launch
+    when it is shared), each n rows at pitch `g_ld(n)` in two planes of
+    `g_itemsize` bytes.  A launch reads each panel once for all the
+    right-hand sides it carries, so the wide kernel streams G once a sweep
+    and a batch walked in chunks once a chunk."""
+    panels = 1 if shared else steps * (2 if lerp else 1)
+    return panels * n * g_ld(n) * 2 * g_itemsize
 
 
 def _count(mode: str, width: int, lerp: bool, tri: bool,
-           shared: bool = False) -> None:
+           shared: bool = False, g_bytes: int = 0) -> None:
     key = (mode, width, lerp, tri, shared)
     launches_by_variant[key] = launches_by_variant.get(key, 0) + 1
+    g_bytes_by_variant[key] = g_bytes_by_variant.get(key, 0) + g_bytes
 
 
 def __getattr__(name: str):
@@ -433,7 +451,8 @@ def sweep(G_re, G_im, u, c, carry0, *, mode: str, g_lo=None,
     ld = 1024); with a shared panel, lerp tables or tridiagonal coupling a
     larger batch is walked in chunks of 4, each chunk a sweep of its own
     that streams G again.  The launch counters count each launch, by its
-    width.  A launch the runtime refuses raises.
+    width, and the bytes of G it streams (`g_bytes_by_variant`).  A launch
+    the runtime refuses raises.
 
     Returns the (S, n) / (S, R, n) updated rows in natural order.
     """
@@ -476,7 +495,8 @@ def sweep(G_re, G_im, u, c, carry0, *, mode: str, g_lo=None,
                 scratch.data_ptr() if scratch is not None else None,
                 plan.blocks, plan.rows_per_block, plan.stages, stream)
             build.check(status, f"sweep[{mode}]")
-            _count(mode, width, lerp, tri, shared)
+            _count(mode, width, lerp, tri, shared,
+                   g_stream_bytes(n, S, g_bytes, lerp=lerp, shared=shared))
             plans_by_variant[(mode, width, lerp, tri, shared)] = plan
             r0 += width
     return out
@@ -500,6 +520,7 @@ def _sweep_wide(lib, G_re, G_im, u, c, carry0, out, mode: str,
             plan.slices, plan.stages,
             torch.cuda.current_stream().cuda_stream)
     build.check(status, f"sweep_wide[{mode}]")
-    _count(mode, R, False, False, False)
+    _count(mode, R, False, False, False,
+           g_stream_bytes(n, S, G_re.element_size()))
     plans_by_variant[(mode, R, False, False, False)] = plan
     return out
