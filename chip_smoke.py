@@ -135,7 +135,12 @@ its device work alone and its host cost, beside the library call's, and
 two calls on the same inputs must give equal bits;
 then every kernel instance its C entry point dispatches runs once, on a
 small matrix with empty block rows and block rows cut between units
-(pointers 16-byte aligned and not), against the plain version.
+(pointers 16-byte aligned and not), against the plain version.  The
+setup's batched inverse is timed by each route (the general and the
+symmetric blocked Gauss-Jordan, pivoted LU) on the last layer's Schur blocks
+at n = 1023 and 2047 (`blocked_inverse`), and the benchmark's two c1_f1
+factors must send every Schur block to the symmetric route
+(`factor_routes`); every path's counts carry `dense.inverses_by_route`.
 
 After `solve` it profiles one apply of the main path's preconditioner
 with torch.profiler (`apply_profile`: K2's share of the device time, the
@@ -152,6 +157,7 @@ table, the card's name and power limit, and the verdict.
 import argparse
 import contextlib
 import dataclasses
+import functools
 import io
 import itertools
 import json
@@ -731,41 +737,122 @@ def inverse_residual(X, A):
     return math.sqrt(sq / (A.shape[0] * n))
 
 
+#: the routes of the setup's batched inverse: name -> the call
+INVERSE_ROUTES = {
+    "gauss_jordan": dense.batched_inverse,
+    "gauss_jordan_sym": dense.batched_inverse_sym,
+    "linalg_inv": functools.partial(dense.batched_inverse, pivoted=True),
+}
+
+
 def check_blocked_inverse(flush):
-    """The setup's batched inverse at its main shape, both routes, and at a
-    batch of one (one Schur block: what the lerped setups' H_F and the
-    exact path's layer inverses pay)."""
-    n = FULL["n"]
-    Mg = n - FULL["b"]
-    B = len(sweeping.sample_positions(Mg, LERP_STRIDE))
-    S = schur_blocks(FULL, LERP_STRIDE, B)
-    rec = {"batch": B, "n": n, "tol": INV_TOL}
-    for route, pivoted in (("gauss_jordan", False), ("linalg_inv", True)):
-        X = dense.batched_inverse(S, pivoted=pivoted)
-        torch.cuda.synchronize()
-        rec[f"{route}_residual"] = inverse_residual(X, S)
-        del X
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        rec[f"{route}_ms_per_inverse"] = time_ms(
-            lambda: dense.batched_inverse(S, pivoted=pivoted), 3, flush) / B
-        rec[f"{route}_workspace_bytes"] = (torch.cuda.max_memory_allocated()
-                                           - base)
-        # the operations of one inverse, 8 n^3, at the achieved rate
-        rec[f"{route}_tflops"] = 8 * n ** 3 / (
-            rec[f"{route}_ms_per_inverse"] * 1e-3) / 1e12
+    """The setup's batched inverse at its main shapes, every route on the
+    same last-layer Schur blocks, and at a batch of one (one Schur block:
+    what H_F's stack and the one-subgrid setups pay): n = 1023, the 146
+    stride-7 samples in one batch; n = 2047, one setup chunk of the
+    stride-8 samples (50).  Each route's residual, ms, workspace, K3
+    launches and rate at 8 n^3 and at its own operation count
+    (`dense.blocked_gj_flops`).  The symmetric route must need no more
+    workspace than the general one and launch K3 as often."""
+    recs = []
+    for cfg, stride in ((FULL, LERP_STRIDE), (FLAG, FLAG_STRIDE)):
+        n = cfg["n"]
+        B = min(len(sweeping.sample_positions(n - cfg["b"], stride)),
+                sweeping._clamped_chunk(sweeping.DEFAULT_SETUP_CHUNK, n))
+        S = schur_blocks(cfg, stride, B)
         one = S[:1].contiguous()
-        rec[f"{route}_batch1_residual"] = inverse_residual(
-            dense.batched_inverse(one, pivoted=pivoted), one)
-        rec[f"{route}_batch1_ms"] = time_ms(
-            lambda: dense.batched_inverse(one, pivoted=pivoted), 5, flush)
-    for route, key in itertools.product(("gauss_jordan", "linalg_inv"),
-                                        ("residual", "batch1_residual")):
-        if not rec[f"{route}_{key}"] < INV_TOL:
-            fail(f"blocked_inverse: {route} {key} "
-                 f"{rec[f'{route}_{key}']:.3e} >= {INV_TOL}")
-    return rec
+        rec = {"batch": B, "n": n, "tol": INV_TOL}
+        for route, inverse in INVERSE_ROUTES.items():
+            k3.reset_counts()
+            X = inverse(S)
+            torch.cuda.synchronize()
+            rec[f"{route}_k3_launches"] = k3.launches
+            rec[f"{route}_residual"] = inverse_residual(X, S)
+            del X
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = time_ms(lambda: inverse(S), 3, flush) / B
+            rec[f"{route}_ms_per_inverse"] = ms
+            rec[f"{route}_workspace_bytes"] = (
+                torch.cuda.max_memory_allocated() - base)
+            # the operations of one inverse, 8 n^3, at the achieved rate
+            rec[f"{route}_tflops"] = 8 * n ** 3 / (ms * 1e-3) / 1e12
+            if route != "linalg_inv":
+                rec[f"{route}_flops_own"] = dense.blocked_gj_flops(
+                    n, symmetric=route == "gauss_jordan_sym")
+                rec[f"{route}_tflops_own"] = (
+                    rec[f"{route}_flops_own"] / (ms * 1e-3) / 1e12)
+            rec[f"{route}_batch1_residual"] = inverse_residual(
+                inverse(one), one)
+            rec[f"{route}_batch1_ms"] = time_ms(lambda: inverse(one), 5,
+                                                flush)
+        for route, key in itertools.product(INVERSE_ROUTES,
+                                            ("residual", "batch1_residual")):
+            if not rec[f"{route}_{key}"] < INV_TOL:
+                fail(f"blocked_inverse n={n}: {route} {key} "
+                     f"{rec[f'{route}_{key}']:.3e} >= {INV_TOL}")
+        if (rec["gauss_jordan_sym_workspace_bytes"]
+                > rec["gauss_jordan_workspace_bytes"]):
+            fail(f"blocked_inverse n={n}: the symmetric route's workspace "
+                 f"{rec['gauss_jordan_sym_workspace_bytes']} exceeds the "
+                 f"general route's {rec['gauss_jordan_workspace_bytes']}")
+        if (rec["gauss_jordan_sym_k3_launches"]
+                != rec["gauss_jordan_k3_launches"]):
+            fail(f"blocked_inverse n={n}: K3 launches "
+                 f"{rec['gauss_jordan_sym_k3_launches']} (symmetric) "
+                 f"against {rec['gauss_jordan_k3_launches']}")
+        recs.append(rec)
+        del S, one
+        torch.cuda.empty_cache()
+    return recs
+
+
+#: the benchmark's c1_f1 factors (portbench/configs/c1_f1-n1023.json and
+#: c1_f1-n2047.json): (configuration, stride, compressed)
+FACTOR_ROUTE_CASES = ((FULL, LERP_STRIDE, False), (FLAG, FLAG_STRIDE, True))
+
+
+def check_factor_routes():
+    """The c1_f1 setups as the benchmark's cells run them (complex64, bf16
+    G; n = 1023 stride 7 expanded, n = 2047 stride 8 compressed): every
+    Schur block, the subgrid samples' and H_F's, must take the symmetric
+    route, none the general one."""
+    recs = []
+    for cfg, stride, compress in FACTOR_ROUTE_CASES:
+        n, b = cfg["n"], cfg["b"]
+        hc = ht.HelmholtzConfig(n=n, b=b, wave_num=cfg["wave_num"],
+                                const=cfg["const"])
+        prob = ht.assemble_problem(hc, cfg["problem"],
+                                   complex_dtype=torch.complex64)
+        hm = fd_stencil.build_hm_stencils(n, b, hc.const, hc.eta, hc.omega,
+                                          hc.h, prob.c_full,
+                                          fidelity="corrected",
+                                          complex_dtype=torch.complex64)
+        dense.reset_counts()
+        k3.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        P = sweeping.setup_preconditioner(prob.A, hm, b,
+                                          g_dtype=torch.bfloat16,
+                                          factor_stride=stride,
+                                          g_compress=compress)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        samples = len(sweeping.sample_positions(n - b, stride))
+        rec = {"n": n, "stride": stride, "compressed": compress,
+               "samples": samples, "setup_s": seconds,
+               "k3_launches": k3.launches,
+               "inverses_by_route": dict(dense.inverses_by_route),
+               "expected_sym": samples * b + b}
+        if rec["inverses_by_route"] != {"sym": samples * b + b,
+                                        "general": 0}:
+            fail(f"factor_routes n={n}: {rec['inverses_by_route']}, "
+                 f"expected {samples * b + b} symmetric and none general")
+        recs.append(rec)
+        del prob, hm, P
+        torch.cuda.empty_cache()
+    return recs
 
 
 def profile_apply():
@@ -925,7 +1012,7 @@ def counted(fn, name=None):
     """Run fn() with every launch count set to zero just before and read
     just after; also the peak device memory of the run (kept under `name`
     in PATH_MEMORY with what was allocated before it, where given)."""
-    for k in (k1, k2, k3, k4):
+    for k in (k1, k2, k3, k4, dense):
         k.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -935,7 +1022,8 @@ def counted(fn, name=None):
     # totals by mode, by width, with lerp tables and over one shared panel
     # are sums over that one count
     counts = {"stencil_matvec": k1.launches, "sweep": k2.launches,
-              "gj_inverse": k3.launches, "bsr_matmat": k4.launches, **{
+              "gj_inverse": k3.launches, "bsr_matmat": k4.launches,
+              "inverses_by_route": dict(dense.inverses_by_route), **{
                   f"sweep_{m}": c for m, c in k2.launches_by_mode.items()},
               "sweep_lerp": k2.launches_lerp,
               "sweep_shared": k2.launches_shared,
@@ -2416,7 +2504,11 @@ def main():
     rec_k3 = next(r for r in k3_recs if (r["batch"], r["k"]) == K3_MAIN)
     # the blocked inverse that K3 serves, both routes on the same matrices
     rec_inv = check_blocked_inverse(flush)
-    say("blocked_inverse", **rec_inv)
+    for rec in rec_inv:
+        say("blocked_inverse", **rec)
+    rec_routes = check_factor_routes()
+    for rec in rec_routes:
+        say("factor_routes", **rec)
     torch.cuda.empty_cache()
 
     # K4 on the exact path's operator as BSR (n = 511: 1531 blocks of
@@ -2454,6 +2546,7 @@ def main():
                        "stencil_matvec": rec_k1, "sweep_variants": variants,
                        "k2_2047": k2_2047,
                        "gj_inverse": k3_recs, "blocked_inverse": rec_inv,
+                       "factor_routes": rec_routes,
                        "bsr_matmat": k4_recs,
                        "bsr_matmat_instances": k4_instances}, fh, indent=1)
         say("done", seconds=time.perf_counter() - t_start, kernels_only=True)
@@ -2799,7 +2892,7 @@ def main():
                    "peaks": PEAKS,
                    "stencil_matvec": rec_k1, "sweep_variants": variants,
                    "gj_inverse": k3_recs, "blocked_inverse": rec_inv,
-                   "bsr_matmat": k4_recs,
+                   "factor_routes": rec_routes, "bsr_matmat": k4_recs,
                    "bsr_matmat_instances": k4_instances, "kernels": table,
                    "k2_2047": k2_2047, "path_memory": PATH_MEMORY,
                    "launches": paths, **record}, fh, indent=1)

@@ -41,6 +41,21 @@ def _sample_velocity(c_full, i, j, fidelity):
     raise ValueError(f"unknown fidelity {fidelity!r}")
 
 
+def _midpoints(n, rd, dev):
+    """The n + 1 in-layer midpoints i - 1/2, i = 1..n+1, in grid units."""
+    return torch.arange(n + 1, device=dev).to(rd) + 0.5
+
+
+def _in_layer_couplings(c_mid, shape):
+    """(cw, ce) from the couplings at the n + 1 in-layer midpoints: cw[i]
+    and ce[i-1] are the same stored number, so the in-layer blocks are
+    complex-symmetric to the bit on every device (computed apart, a vector
+    unit's tail lane could round the one differently)."""
+    *lead, n = shape
+    c_mid = c_mid.expand(*lead, n + 1)
+    return c_mid[..., :-1], c_mid[..., 1:]
+
+
 def build_a_stencil_rows(rows, n, b, const, eta, omega, h, c_full, *,
                          fidelity="as-shipped",
                          complex_dtype=torch.complex128) -> Stencil5:
@@ -60,8 +75,7 @@ def build_a_stencil_rows(rows, n, b, const, eta, omega, h, c_full, *,
     j = j_idx.to(rd)
     inv_h2 = 1.0 / (h * h)
 
-    s1_m = pml.s1((i - 0.5) * h, const, eta, omega, cd)   # (n,)
-    s1_p = pml.s1((i + 0.5) * h, const, eta, omega, cd)
+    s1_h = pml.s1(_midpoints(n, rd, dev) * h, const, eta, omega, cd)
     s1_c = pml.s1(i * h, const, eta, omega, cd)
     s2_m = pml.s2((j - 0.5) * h, const, eta, omega, cd)   # (L_loc, 1)
     s2_p = pml.s2((j + 0.5) * h, const, eta, omega, cd)
@@ -69,8 +83,7 @@ def build_a_stencil_rows(rows, n, b, const, eta, omega, h, c_full, *,
 
     L_loc = rows.shape[0]
     shape = (L_loc, n)
-    cw = (inv_h2 * (s1_m / s2_c)).expand(shape)
-    ce = (inv_h2 * (s1_p / s2_c)).expand(shape)
+    cw, ce = _in_layer_couplings(inv_h2 * (s1_h / s2_c), shape)
     cs = (inv_h2 * (s2_m / s1_c)).expand(shape)
     cn = (inv_h2 * (s2_p / s1_c)).expand(shape)
 
@@ -125,8 +138,7 @@ def build_hm_stencils_rows(rows, n, b, const, eta, omega, h, c_full, *,
     m = torch.clamp(rows + 1, min=b + 1)[:, None, None]
     inv_h2 = 1.0 / (h * h)
 
-    s1_m = pml.s1((i - 0.5) * h, const, eta, omega, cd)
-    s1_p = pml.s1((i + 0.5) * h, const, eta, omega, cd)
+    s1_h = pml.s1(_midpoints(n, rd, dev) * h, const, eta, omega, cd)
     s1_c = pml.s1(i * h, const, eta, omega, cd)
     # moved PML: s2m at global x2 = j*h equals s2 at local l*h.
     s2_m = pml.s2((l - 0.5) * h, const, eta, omega, cd)   # (b, 1)
@@ -134,8 +146,7 @@ def build_hm_stencils_rows(rows, n, b, const, eta, omega, h, c_full, *,
     s2_c = pml.s2(l * h, const, eta, omega, cd)
 
     shape = (M, b, n)
-    cw = (inv_h2 * (s1_m / s2_c)).expand(shape)
-    ce = (inv_h2 * (s1_p / s2_c)).expand(shape)
+    cw, ce = _in_layer_couplings(inv_h2 * (s1_h / s2_c), shape)
     cs = (inv_h2 * (s2_m / s1_c)).expand(shape)
     cn = (inv_h2 * (s2_p / s1_c)).expand(shape)
 

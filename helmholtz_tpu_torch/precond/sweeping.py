@@ -38,7 +38,7 @@ import torch
 from .._device import resolve_device
 from ..core.sparse import Stencil5
 from ..fd import stencil as fd_stencil
-from ..ops.dense import batched_inverse
+from ..ops.dense import batched_inverse, batched_inverse_sym
 from ..ops.kernels.sweep import g_ld, plain_sweep, sweep
 
 #: Complex-word budget for the batched-inverse setup workspace: at most
@@ -54,7 +54,9 @@ from ..ops.kernels.sweep import g_ld, plain_sweep, sweep
 #: 0.51-0.53 ms at 16-30 and 0.35-0.37 ms from 61 to 300 (LU: 6.0, 1.4-2.4
 #: and 0.70-1.01 ms).  2.1e8 words keeps the old bound of about 6.4 GB of
 #: workspace and lets all 146 samples of the n = 1023, stride-7 setup
-#: through in ONE batch.
+#: through in ONE batch.  The symmetric route that the 5-point families
+#: take holds less (no colk, no new panel column), so the same budget
+#: bounds it.
 SETUP_WORKSPACE_WORDS = int(2.1e8)
 
 #: Default upper bound on the subgrids per batched inverse, above the clamp
@@ -87,14 +89,32 @@ def _add_tridiag_(X, cw, cc, ce):
     return X
 
 
-def _schur_step(T_prev, H: Stencil5, l: int):
+def _schur_step(T_prev, H: Stencil5, l: int, inverse):
     """T_l = (H_ll - diag(cs_l) T_{l-1} diag(cn_{l-1}))^{-1}.  The diagonal
     couplings turn the Schur update into a row/column scaling.  Builds S in
-    a fresh buffer (T_prev may be a stored result)."""
+    a fresh buffer (T_prev may be a stored result) and inverts it with
+    `inverse`, the family's route (`_schur_inverse`)."""
     S = T_prev * (-H.cs[..., l, :, None])
     S.mul_(H.cn[..., l - 1, None, :])
     _add_tridiag_(S, H.cw[..., l, :], H.cc[..., l, :], H.ce[..., l, :])
-    return batched_inverse(S)
+    return inverse(S)
+
+
+def _schur_inverse(H: Stencil5):
+    """The batched inverse for the layer Schur blocks of the family H:
+    `batched_inverse_sym` when H is complex-symmetric as stored, else
+    `batched_inverse`.
+
+    The 5-point operator is complex-symmetric: cw[i] = ce[i-1] (both s1 at
+    the same midpoint over s2) and cs_l = cn_{l-1}; then S_0 = H_00, every
+    T_l = S_l^{-1} and every S_l = H_ll - diag(cs_l) T_{l-1} diag(cn_{l-1})
+    are symmetric, S_l to rounding (T_ij (-cs_i) cn_j and T_ji (-cs_j) cn_i
+    multiply in another order).  The couplings are compared exactly, once
+    for the whole family (one host sync); a family built with other
+    couplings takes the general route."""
+    sym = (torch.equal(H.cw[..., 1:], H.ce[..., :-1])
+           and torch.equal(H.cs[..., 1:, :], H.cn[..., :-1, :]))
+    return batched_inverse_sym if sym else batched_inverse
 
 
 def _schur_t_stack(H: Stencil5):
@@ -105,10 +125,11 @@ def _schur_t_stack(H: Stencil5):
     Returns T of shape (..., L, n, n).
     """
     L = H.cc.shape[-2]
-    Ts = [batched_inverse(
+    inverse = _schur_inverse(H)
+    Ts = [inverse(
         _dense_tridiag(H.cw[..., 0, :], H.cc[..., 0, :], H.ce[..., 0, :]))]
     for l in range(1, L):
-        Ts.append(_schur_step(Ts[-1], H, l))
+        Ts.append(_schur_step(Ts[-1], H, l, inverse))
     return torch.stack(Ts, dim=-3)
 
 
@@ -116,10 +137,11 @@ def _schur_corner_inverse(H: Stencil5):
     """T_{L-1} = S_{L-1}^{-1} only (the subgrid corner inverse G_m), without
     stacking the intermediate T_l: peak memory a few (batch, n, n)."""
     L = H.cc.shape[-2]
-    T = batched_inverse(
+    inverse = _schur_inverse(H)
+    T = inverse(
         _dense_tridiag(H.cw[..., 0, :], H.cc[..., 0, :], H.ce[..., 0, :]))
     for l in range(1, L):
-        T = _schur_step(T, H, l)
+        T = _schur_step(T, H, l, inverse)
     return T
 
 

@@ -4,9 +4,11 @@
 
 For each chunk size the layer-Schur recursion (b batched inverses of
 chunk x n x n complex64 matrices) runs on that many moving-PML subgrids of
-the c1_f1 problem, through each route of `ops.dense.batched_inverse` in
-turn: the blocked Gauss-Jordan inverse with its panel kernel (the setup's
-route on the card) and `torch.linalg.inv` (pivoted LU, `pivoted=True`).
+the c1_f1 problem, through each route of `ops.dense` in turn: the
+symmetric blocked Gauss-Jordan inverse (`batched_inverse_sym`, the
+5-point setup's route on the card), the general one (`batched_inverse`),
+both with the panel kernel, and `torch.linalg.inv` (pivoted LU,
+`pivoted=True`).
 The script prints seconds per subgrid, ms per inverse and the peak device
 memory above what the inputs hold, one JSON line per chunk and route, after
 a line with the card's name and power limit.  With `--solve-chunks` it
@@ -30,7 +32,11 @@ from helmholtz_tpu_torch.fd import stencil as fd_stencil
 from helmholtz_tpu_torch.ops import dense
 from helmholtz_tpu_torch.precond import sweeping
 
-ROUTES = {"gauss_jordan": False, "linalg_inv": True}   # name: pivoted
+#: name: the batched inverse every Schur block of the recursion takes
+ROUTES = {"gauss_jordan_sym": dense.batched_inverse_sym,
+          "gauss_jordan": dense.batched_inverse,
+          "linalg_inv": functools.partial(dense.batched_inverse,
+                                          pivoted=True)}
 
 
 def main():
@@ -62,9 +68,9 @@ def main():
     with torch.no_grad():
         for chunk in args.chunks:
             part = hm.map(lambda f: f[:chunk])
-            for route, pivoted in ROUTES.items():
-                sweeping.batched_inverse = functools.partial(
-                    dense.batched_inverse, pivoted=pivoted)
+            for route, inverse in ROUTES.items():
+                sweeping.batched_inverse = inverse
+                sweeping.batched_inverse_sym = inverse
                 sweeping._schur_corner_inverse(part.map(lambda f: f[:2]))
                 torch.cuda.synchronize()
                 torch.cuda.empty_cache()
@@ -84,6 +90,7 @@ def main():
                     "workspace_peak_bytes": peak, "complex_words": words,
                     "bytes_per_word": peak / words}), flush=True)
         sweeping.batched_inverse = dense.batched_inverse
+        sweeping.batched_inverse_sym = dense.batched_inverse_sym
     del hm, part, prob
     for chunk in args.solve_chunks + args.solve_chunks[::-1]:
         torch.cuda.empty_cache()
