@@ -1385,7 +1385,8 @@ def recompute_apply_check(dev):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        recompute.apply_recompute(R, f)
+        with profiling.annotate("recompute.apply"):
+            recompute.apply_recompute(R, f)
         torch.cuda.synchronize()
     by_kernel = {}
     for e in prof.events():
@@ -1396,6 +1397,13 @@ def recompute_apply_check(dev):
             by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
                                  + e.time_range.elapsed_us() / 1e3)
     busy = sum(by_kernel.values())
+    ranges = range_device_ms(
+        prof, ("recompute.apply", "recompute.refactor", "recompute.sweep"))
+    # the H_F solves carry no range of their own: their share is what the
+    # apply's range holds beyond the re-factors and the sweeps
+    ranges["recompute.hf"] = (ranges.pop("recompute.apply", 0.0)
+                              - ranges.get("recompute.refactor", 0.0)
+                              - ranges.get("recompute.sweep", 0.0))
     split = {
         "apply_s": apply_s, "apply_peak_bytes": apply_peak,
         "chunks_fwd": len(fwd), "chunks_bwd": len(bwd),
@@ -1408,8 +1416,7 @@ def recompute_apply_check(dev):
                             if "gj_inverse_kernel" in k),
         "k2_kernel_ms": sum(t for k, t in by_kernel.items()
                             if "sweep_kernel" in k),
-        "range_device_ms": range_device_ms(
-            prof, ("recompute.refactor", "recompute.sweep", "recompute.hf")),
+        "range_device_ms": ranges,
         "top_kernels_ms": [[k[:100], t] for k, t in sorted(
             by_kernel.items(), key=lambda kv: -kv[1])[:8]],
     }
@@ -2478,9 +2485,9 @@ def main():
                                                 g_dtype=g_dtype,
                                                 d2_replace=d2)
             k2.reset_counts()
-            got = sweeping9.apply_preconditioner9(P, prob.f_grid)
-            ref = sweeping9.apply_preconditioner9(P, prob.f_grid,
-                                                  impl="plain")
+            got = sweeping.apply_preconditioner(P, prob.f_grid)
+            ref = sweeping.apply_preconditioner(P, prob.f_grid,
+                                                impl="plain")
             err, rel = rel_err(got, ref)
             say("apply9", n=c9.n, b=c9.b, g_dtype=str(g_dtype),
                 d2_replace=d2, max_abs_err=err, rel_err=rel, tol=K2_TOL,

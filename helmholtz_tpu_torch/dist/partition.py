@@ -122,6 +122,12 @@ class DistSweepState:
     def band_shape(self):
         return tuple(self.a_cs.shape)
 
+    @property
+    def couplings(self):
+        """(hf_lo, hf_up, a_lo, a_up), as the single-card states name
+        them (`precond.sweeping.apply_rows`)."""
+        return self.hf_cs, self.hf_cn, self.a_cs, self.a_cn
+
 
 @dataclasses.dataclass(frozen=True)
 class DistSweepState9:
@@ -146,6 +152,11 @@ class DistSweepState9:
     @property
     def band_shape(self):
         return (self.a_l.shape[0], self.a_l.shape[-1])
+
+    @property
+    def couplings(self):
+        """(hf_lo, hf_up, a_lo, a_up), as `DistSweepState.couplings`."""
+        return self.hf_l, self.hf_u, self.a_l, self.a_u
 
 
 def band_sample_windows(M: int, R: int, b: int, n_loc: int, D: int):

@@ -33,10 +33,8 @@ import torch
 
 from ..ops.kernels.sweep import (_sm_count, launch_widths, panel_matvec,
                                   sweep)
-from ..precond.sweeping import _block_thomas_solve_multi
-from ..precond.sweeping9 import _block_thomas_solve9, _tridiag_matvec
+from ..precond.sweeping import block_thomas_solve, couple, rows_outermost
 from . import comm
-from .partition import DistSweepState9
 
 #: sweep chunks (`launch_widths` of the band's batch) of the applies made
 #: in this process: each is one launch of the sweep kernel per direction
@@ -48,72 +46,60 @@ def reset_counts() -> None:
     apply_chunks = 0
 
 
-def _couple(c, v, tri: bool):
-    """The coupling row(s) c applied to the (B, n) rows v."""
-    return _tridiag_matvec(*c, v) if tri else c * v
-
-
 def dist_apply_preconditioner(mesh, S, f_band: torch.Tensor) -> torch.Tensor:
     """u ~= (A^{-1} f) on this rank's band, for either stencil's state
     (`DistSweepState`, or `DistSweepState9`, for which the JAX package has
     `dist_apply_preconditioner9`): f_band (n_loc, n) or a batch
     (B, n_loc, n), left untouched.  Every rank of the mesh must call it
-    with the same batch."""
+    with the same batch.  The algebra of `precond.sweeping.apply_rows`, on
+    the band's rows (outermost, as the sweeps take them), with its
+    coupling product and block-Thomas solve."""
     global apply_chunks
     run = functools.partial(sweep, g_lo=S.g_lo, g_w=S.g_w)
-    tri = isinstance(S, DistSweepState9)
-    a_lo, a_up = (S.a_l, S.a_u) if tri else (S.a_cs, S.a_cn)
-    if tri:
-        thomas = lambda r: _block_thomas_solve9(S.TF, S.hf_l, S.hf_u, r)
-    else:
-        thomas = lambda r: _block_thomas_solve_multi(S.TF, S.hf_cs, S.hf_cn,
-                                                     r)
+    hf_lo, hf_up, a_lo, a_up = S.couplings
+    thomas = lambda r: block_thomas_solve(S.TF, hf_lo, hf_up, r)
     squeeze = f_band.ndim == 2
-    u = (f_band[None] if squeeze else f_band).clone()     # (B, n_loc, n)
-    B, n_loc, n = u.shape
+    u = rows_outermost(f_band[None] if squeeze else f_band)  # (n_loc, B, n)
+    n_loc, B, n = u.shape
     b = S.b
     r, D = mesh.rank, mesh.size
-    to_sbn = lambda x: x.transpose(0, 1).contiguous()
     apply_chunks += len(launch_widths(B, n, S.G_re.element_size(),
-                                      S.g_lo is not None, False, tri,
-                                      _sm_count(u.device)))
+                                      S.g_lo is not None, False,
+                                      a_lo.ndim == 3, _sm_count(u.device)))
 
     # H_F solve and the row-b correction (rank 0; b < n_loc)
     if r == 0:
-        TFuF = thomas(u[:, :b])
-        u[:, b] -= _couple(a_lo[b], TFuF[:, b - 1], tri)
+        TFuF = thomas(u[:b])
+        u[b] -= couple(a_lo[b], TFuF[b - 1])
 
     # forward sweep: the carry from the band below enters row 0, the
     # kernel runs rows 1..n_loc-1, the last row's product goes up
     if r > 0:
-        t = comm.await_carry(mesh, u[:, 0], up=True)
-        u[:, 0] -= _couple(a_lo[0], t, tri)
+        t = comm.await_carry(mesh, u[0], up=True)
+        u[0] -= couple(a_lo[0], t)
     if n_loc > 1:
-        u[:, 1:] = run(S.G_re, S.G_im, to_sbn(u[:, 1:]), a_lo[1:],
-                       u[:, 0].contiguous(), mode="fwd").transpose(0, 1)
+        u[1:] = run(S.G_re, S.G_im, u[1:], a_lo[1:], u[0], mode="fwd")
     if r < D - 1:
-        comm.pass_carry(mesh, panel_matvec(S.G_re, S.G_im, n_loc - 1,
-                                           u[:, -1], g_lo=S.g_lo,
-                                           g_w=S.g_w), up=True)
+        comm.pass_carry(mesh, panel_matvec(S.G_re, S.G_im, n_loc - 1, u[-1],
+                                           g_lo=S.g_lo, g_w=S.g_w), up=True)
 
     # fused diagonal + backward sweep: the row above the band enters the
     # last row's coupling (zero, with a zeroed coupling, at the top of the
     # domain); the band's first row goes down
     if r < D - 1:
-        nxt = comm.await_carry(mesh, u[:, -1], up=False)
+        nxt = comm.await_carry(mesh, u[-1], up=False)
         c_up = a_up
     else:
-        nxt = torch.zeros_like(u[:, -1])
+        nxt = torch.zeros_like(u[-1])
         c_up = torch.cat([a_up[:-1], torch.zeros_like(a_up[-1:])], dim=0)
-    u_bwd = run(S.G_re, S.G_im, to_sbn(u), c_up, nxt,
-                mode="bwd" if S.d2_replace else "bwd_sub").transpose(0, 1)
+    u = run(S.G_re, S.G_im, u, c_up, nxt,
+            mode="bwd" if S.d2_replace else "bwd_sub")
     if r > 0:
-        comm.pass_carry(mesh, u_bwd[:, 0].contiguous(), up=False)
+        comm.pass_carry(mesh, u[0], up=False)
 
-    # F-block closure (rank 0): u_F = T_F u_F - T_F (A_{F,b+1} u_b)
+    # F-block closure (rank 0): u_F = T_F u_F - T_F (A_{F,b} u_b)
     if r == 0:
         rhs = torch.zeros_like(TFuF)
-        rhs[:, b - 1] = _couple(a_up[b - 1], u_bwd[:, b], tri)
-        u_bwd[:, :b] = TFuF - thomas(rhs)
-    return u_bwd[0] if squeeze else u_bwd
-
+        rhs[b - 1] = couple(a_up[b - 1], u[b])
+        u[:b] = TFuF - thomas(rhs)
+    return u[:, 0] if squeeze else u.transpose(0, 1).contiguous()

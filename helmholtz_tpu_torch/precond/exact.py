@@ -4,7 +4,7 @@ A full block-LDL^T of the global operator by the layer Schur recursion
 S_m = A_mm - A_{m,m-1} S_{m-1}^{-1} A_{m-1,m}, followed by the forward /
 diagonal / backward block solve: the validation oracle among the
 preconditioners, exact to rounding.  It is the moving-PML setup's machinery
-(`precond.sweeping._schur_t_stack` and `_block_thomas_solve`) applied to the
+(`precond.sweeping._schur_t_stack` and `block_thomas_solve`) applied to the
 whole operator instead of a b-layer subgrid: L dense n x n inverses one
 after another, each a batch of one (the blocked Gauss-Jordan inverse on the
 card, so the Gauss-Jordan kernel runs on one panel at a time there), and an
@@ -20,8 +20,7 @@ from ..core.sparse import BSR, Stencil5
 from ..ops.dense import batched_inverse
 from ..ops.sparse_algebra import bsr_spgemm
 from ..ops.spmv import stencil_matvec
-from .sweeping import (_block_thomas_solve, _block_thomas_solve_multi,
-                       _schur_t_stack)
+from .sweeping import _schur_t_stack, block_thomas_solve
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +33,7 @@ class ExactFactorization:
 
     def solve(self, f: torch.Tensor) -> torch.Tensor:
         """u = A^{-1} f for grid-shaped f (L, n)."""
-        return _block_thomas_solve(self.T, self.cs, self.cn, f)
+        return block_thomas_solve(self.T, self.cs, self.cn, f[:, None])[:, 0]
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         L, n = self.cs.shape
@@ -99,6 +98,7 @@ def rebuild_error(A: Stencil5, F: ExactFactorization) -> float:
     batch, then N stencil products; an N x N check for small grids)."""
     L, n = F.cs.shape
     eye = torch.eye(L * n, dtype=A.dtype, device=A.device)
-    cols = stencil_matvec(A, _block_thomas_solve_multi(
-        F.T, F.cs, F.cn, eye.reshape(-1, L, n)))
+    U = block_thomas_solve(F.T, F.cs, F.cn,
+                           eye.reshape(-1, L, n).transpose(0, 1))
+    cols = stencil_matvec(A, U.transpose(0, 1))
     return (cols.reshape(eye.shape) - eye).abs().max().item()

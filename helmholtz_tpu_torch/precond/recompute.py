@@ -30,8 +30,9 @@ recursion:
     samples and the sweep runs the kernel's lerp mode with chunk-local
     tables: the same interpolated operator as the stored strided path,
     without expanding a dense chunk;
-  * H_F: `sweeping._block_thomas_solve` before and after the sweeps, as in
-    the stored apply.
+  * the rest of the apply, H_F's block-Thomas solves before and after the
+    sweeps included, is the stored apply's own body, `sweeping.apply_rows`,
+    given a sweep runner that re-derives G (`_chunk_runner`).
 
 The JAX package factors each chunk with its matrix-fraction recursion
 (`_schur_corner_inverse_fraction`, `schur_block`); the port factors it
@@ -54,8 +55,8 @@ from ..core.sparse import Stencil5
 from ..fd import stencil as fd_stencil
 from ..ops.kernels.sweep import g_ld, sweep
 from ..utils.profiling import annotate
-from .sweeping import (_block_thomas_solve, _block_thomas_solve_multi,
-                       _schur_corner_inverse, _schur_t_stack)
+from .sweeping import (_schur_corner_inverse, _schur_t_stack, apply_rows,
+                       rows_outermost)
 
 #: complex words of one chunk of corner inverses that the auto chunk
 #: allows: max(4, min(128, AUTO_CHUNK_WORDS // n^2)) rows, as in the JAX
@@ -93,6 +94,12 @@ class RecomputeSweepingPreconditioner:
     @property
     def grid_shape(self):
         return tuple(self.a_cs.shape)
+
+    @property
+    def couplings(self):
+        """(hf_lo, hf_up, a_lo, a_up) as `sweeping.apply_rows` takes
+        them."""
+        return self.hf_cs, self.hf_cn, self.a_cs, self.a_cn
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """LinearOperator-style matvec on a flat (N,) vector."""
@@ -227,64 +234,38 @@ def chunk_plan(R: RecomputeSweepingPreconditioner):
     return fwd, bwd
 
 
-def _apply(R: RecomputeSweepingPreconditioner, u: torch.Tensor
-           ) -> torch.Tensor:
-    """The apply on u of (L, n), or (L, B, n) for a batch (rows outermost,
-    as the sweeps take it); u is overwritten and returned."""
-    b, n = R.b, R.n
-    M = sweep_rows(R)
-    multi = u.ndim == 3
-    if multi:
-        thomas = lambda r: _block_thomas_solve_multi(          # noqa: E731
-            R.TF, R.hf_cs, R.hf_cn, r.transpose(0, 1)).transpose(0, 1)
-    else:
-        thomas = lambda r: _block_thomas_solve(                # noqa: E731
-            R.TF, R.hf_cs, R.hf_cn, r)
-    fwd, bwd = chunk_plan(R)
+def _chunk_runner(R: RecomputeSweepingPreconditioner, device):
+    """`sweeping.apply_rows`' sweep runner that re-derives G: each sweep
+    walks its chunks of `chunk_plan`, re-factors a chunk (`_chunk_g`) and
+    runs the chunk's rows through the sweep kernel (K2).  The forward
+    sweep's carry into a chunk is the row below it, already updated; the
+    backward sweep runs from the top chunk down, and every chunk but the
+    top one takes the first row of the chunk above.  One pair of planes,
+    made once an apply, holds each chunk's G in turn."""
+    plan = dict(zip(("fwd", "bwd"), chunk_plan(R)))
     chunk = chunk_rows(R)
     panels = (chunk if R.factor_stride == 1
               else sample_window(chunk, R.factor_stride))
-    wf = R.TF.real.dtype
-    planes = tuple(torch.zeros((panels, n, g_ld(n)), dtype=wf,
-                               device=u.device) for _ in range(2))
+    planes = tuple(torch.zeros((panels, R.n, g_ld(R.n)),
+                               dtype=R.TF.real.dtype, device=device)
+                   for _ in range(2))
 
-    # the three parts of the apply carry named ranges for a profiler trace
-    with annotate("recompute.hf"):
-        TFuF = thomas(u[:b])
-        u[b] -= R.a_cs[b] * TFuF[b - 1]
-
-    # forward sweep, j = b+1..L-1: step k uses G_k, reads row b+k, writes
-    # row b+k+1; the carry of a chunk is the row below it, already updated
-    for k0, c in fwd:
-        with annotate("recompute.refactor"):
-            G_re, G_im, g_lo, g_w = _chunk_g(R, k0, c, planes)
-        rows = slice(b + 1 + k0, b + 1 + k0 + c)
-        with annotate("recompute.sweep"):
-            u[rows] = sweep(G_re, G_im, u[rows], R.a_cs[rows], u[b + k0],
-                          mode="fwd", g_lo=g_lo, g_w=g_w)
-
-    # fused diagonal + backward sweep, j = L-1..b (G_j at k = j-b), top
-    # chunk first; the coupling above the top row is zeroed and the top
-    # chunk's carry is zero, every other chunk's is the first row of the
-    # chunk above
-    cn_top_zeroed = torch.cat(
-        [R.a_cn[b:-1], torch.zeros_like(R.a_cn[-1:])], dim=0)
-    mode = "bwd" if R.d2_replace else "bwd_sub"
-    for k0, c in bwd:
-        with annotate("recompute.refactor"):
-            G_re, G_im, g_lo, g_w = _chunk_g(R, k0, c, planes)
-        rows = slice(b + k0, b + k0 + c)
-        carry = torch.zeros_like(u[-1]) if k0 + c == M else u[b + k0 + c]
-        with annotate("recompute.sweep"):
-            u[rows] = sweep(G_re, G_im, u[rows], cn_top_zeroed[k0:k0 + c],
-                            carry, mode=mode, g_lo=g_lo, g_w=g_w)
-    del planes
-
-    with annotate("recompute.hf"):
-        rhs = torch.zeros_like(TFuF)
-        rhs[b - 1] = R.a_cn[b - 1] * u[b]
-        u[:b] = TFuF - thomas(rhs)
-    return u
+    def run(mode, rows, c, carry):
+        # step k uses G_k on row k of `rows`; `carry` enters below the
+        # first forward chunk and above the top backward chunk
+        fwd = mode == "fwd"
+        for k0, count in plan["fwd" if fwd else "bwd"]:
+            with annotate("recompute.refactor"):
+                G_re, G_im, g_lo, g_w = _chunk_g(R, k0, count, planes)
+            k1 = k0 + count
+            if fwd:
+                prev = rows[k0 - 1] if k0 else carry
+            else:
+                prev = rows[k1] if k1 < rows.shape[0] else carry
+            with annotate("recompute.sweep"):
+                rows[k0:k1] = sweep(G_re, G_im, rows[k0:k1], c[k0:k1], prev,
+                                    mode=mode, g_lo=g_lo, g_w=g_w)
+    return run
 
 
 @torch.no_grad()
@@ -292,16 +273,18 @@ def apply_recompute(R: RecomputeSweepingPreconditioner, f: torch.Tensor
                     ) -> torch.Tensor:
     """One sweep solve u ~= A^{-1} f with G re-derived chunk by chunk: the
     algebra of `sweeping.apply_preconditioner` (corrected or as-shipped
-    diagonal step).  f is (L, n) and left untouched."""
-    return _apply(R, f.clone())
+    diagonal step).  f is (L, n) and left untouched; the batch of one of
+    `apply_recompute_multi`."""
+    return apply_recompute_multi(R, f[None])[0]
 
 
 @torch.no_grad()
 def apply_recompute_multi(R: RecomputeSweepingPreconditioner,
                           F: torch.Tensor) -> torch.Tensor:
     """Batched-RHS recompute apply: F of shape (B, L, n) -> (B, L, n), F
-    untouched.  All B solves share each chunk's re-factorization (paid once
-    for the batch), and each chunk's sweep carries the whole batch (the
-    kernel's R-wide mode, in launches of at most four)."""
-    u = F.transpose(0, 1).contiguous()
-    return _apply(R, u).transpose(0, 1).contiguous()
+    untouched; `sweeping.apply_rows` with the chunk runner.  All B solves
+    share each chunk's re-factorization (paid once for the batch), and each
+    chunk's sweep carries the whole batch (the kernel's R-wide mode, in
+    launches of at most four)."""
+    u = apply_rows(R, rows_outermost(F), _chunk_runner(R, F.device))
+    return u.transpose(0, 1).contiguous()

@@ -30,7 +30,6 @@ contract; the pad columns are zero.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -291,37 +290,52 @@ def expand_strided_samples(Ts_re, Ts_im, *, M: int, stride: int, g_dtype,
     return G_re, G_im
 
 
-def _block_thomas_solve(T, cs, cn, rhs):
-    """Solve the block-tridiagonal system given its Schur-inverse stack.
+def couple(c, v, minus=None, out=None):
+    """The coupling rows c applied to the rows v (..., n): c (n,) is a
+    diagonal (the 5-point scheme), c (3, n) the [sub, diag, sup] rows of a
+    tridiagonal (the 9-point scheme), (c v)_i = sub_i v_{i-1} + diag_i v_i
+    + sup_i v_{i+1}; sub[0] and sup[-1] are not read.  The rank tells the
+    two apart, as in `ops.kernels.sweep.sweep`.  With `minus`, returns
+    minus - c v instead, written into `out` when given (for a tridiagonal,
+    three fused multiply-adds)."""
+    if minus is None:
+        if c.ndim == 1:
+            return c * v
+        y, sign = c[1] * v, 1
+    elif c.ndim == 1:
+        return torch.sub(minus, c * v, out=out)
+    else:
+        y, sign = torch.addcmul(minus, c[1], v, value=-1, out=out), -1
+    y[..., 1:].addcmul_(c[0, 1:], v[..., :-1], value=sign)
+    y[..., :-1].addcmul_(c[2, :-1], v[..., 1:], value=sign)
+    return y
 
-    T: (L, n, n); cs/cn: (L, n) diagonal couplings; rhs: (L, n).  Forward
-    eliminate, then combined diagonal+backward substitution: exact for
-    block-tridiagonal systems.
+
+def block_thomas_solve(T, c_lo, c_up, rhs):
+    """Solve a block-tridiagonal system given its Schur-inverse stack.
+
+    T: (L, n, n); c_lo / c_up: the lower / upper coupling rows, (L, n) or
+    (L, 3, n) (`couple`); rhs: (L, B, n), rows outermost, -> (L, B, n).
+    Forward eliminate, then combined diagonal+backward substitution: exact
+    for block-tridiagonal systems.  Every layer step is one product with
+    T_l for the whole batch (a matrix-vector product for a batch of one,
+    else (n, n) @ (n, B)) and the coupling's multiply-adds: the loop is
+    bound by the host's launches, so it makes few.
     """
     L = T.shape[0]
+    if rhs.shape[1] == 1:
+        mat = lambda l, v: torch.mv(T[l], v[0])[None]
+    else:
+        mat = lambda l, v: (T[l] @ v.T).T
     y = torch.empty_like(rhs)
     y[0] = rhs[0]
     for l in range(1, L):
-        y[l] = rhs[l] - cs[l] * (T[l - 1] @ y[l - 1])
+        couple(c_lo[l], mat(l - 1, y[l - 1]), minus=rhs[l], out=y[l])
     u = torch.empty_like(rhs)
-    u[L - 1] = T[L - 1] @ y[L - 1]
+    u[L - 1] = mat(L - 1, y[L - 1])
+    tmp = torch.empty_like(rhs[0])
     for l in range(L - 2, -1, -1):
-        u[l] = T[l] @ (y[l] - cn[l] * u[l + 1])
-    return u
-
-
-def _block_thomas_solve_multi(T, cs, cn, rhs):
-    """`_block_thomas_solve` for a batch: rhs (B, L, n) -> (B, L, n).  Every
-    layer step is one (n, n) @ (n, B) product for the whole batch."""
-    L = T.shape[0]
-    y = torch.empty_like(rhs)
-    y[:, 0] = rhs[:, 0]
-    for l in range(1, L):
-        y[:, l] = rhs[:, l] - cs[l] * (T[l - 1] @ y[:, l - 1].T).T
-    u = torch.empty_like(rhs)
-    u[:, L - 1] = (T[L - 1] @ y[:, L - 1].T).T
-    for l in range(L - 2, -1, -1):
-        u[:, l] = (T[l] @ (y[:, l] - cn[l] * u[:, l + 1]).T).T
+        u[l] = mat(l, couple(c_up[l], u[l + 1], minus=y[l], out=tmp))
     return u
 
 
@@ -388,6 +402,11 @@ class SweepingPreconditioner:
     @property
     def grid_shape(self):
         return tuple(self.a_cs.shape)
+
+    @property
+    def couplings(self):
+        """(hf_lo, hf_up, a_lo, a_up) as `apply_rows` takes them."""
+        return self.hf_cs, self.hf_cn, self.a_cs, self.a_cn
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """LinearOperator-style matvec on a flat (N,) vector."""
@@ -485,101 +504,102 @@ def preconditioner_from_samples(A: Stencil5, b: int, G_re, G_im, *,
                     **_g_tables(M, g_stride, G_re.device))
 
 
+def apply_rows(P, u: torch.Tensor, run) -> torch.Tensor:
+    """Algorithm 2.4 analog, the one body of every apply on one card: the
+    sweep solve v ~= A^{-1} u of each member of the batch u (L, B, n),
+    rows outermost as the sweeps take it; v is written over u and returned.
+
+    P is a factored state of either stencil, or the recompute state: its
+    H_F stack `TF`, `b`, `d2_replace` and `couplings`, the rows (hf_lo,
+    hf_up, a_lo, a_up) of either rank (`couple`).  `run(mode, rows, c,
+    carry)` runs one sweep recursion (`ops.kernels.sweep.sweep`'s modes)
+    over the sweep rows `rows` (S, B, n) in place and supplies G: the held
+    stack (`_stack_runner`) or G re-derived chunk by chunk
+    (`precond.recompute`).  The three passes of the algorithm (forward /
+    diagonal / backward) are fused into two: the diagonal step folds into
+    the backward sweep as
+        u_j = G_j (u_j^{fwd} - U_j u_{j+1})               (corrected)
+        u_j = u_j^{fwd} - G_j (u_j^{fwd} + U_j u_{j+1})   (as-shipped D2)
+    so each application streams G through device memory twice instead of
+    three times.
+    """
+    hf_lo, hf_up, a_lo, a_up = P.couplings
+    b = P.b
+    thomas = lambda r: block_thomas_solve(P.TF, hf_lo, hf_up, r)
+
+    # H_F solve + first correction: u_b -= A_{b,F} T_F u_F
+    TFuF = thomas(u[:b])
+    u[b] -= couple(a_lo[b], TFuF[b - 1])
+
+    # forward sweep j = b+1..L-1: u_j -= L_j (G_{j-1} u_{j-1}), carry u_b
+    if u.shape[0] - b > 1:
+        run("fwd", u[b + 1:], a_lo[b + 1:], u[b])
+    # fused diagonal + backward sweep, j = L-1..b; the upper coupling of
+    # the top row is zeroed (no layer above) and its carry is zero
+    a_up_top0 = torch.cat([a_up[b:-1], torch.zeros_like(a_up[-1:])], dim=0)
+    run("bwd" if P.d2_replace else "bwd_sub", u[b:], a_up_top0,
+        torch.zeros_like(u[-1]))
+
+    # F-block closure: u_F = T_F u_F - T_F (A_{F,b} u_b)
+    rhs = torch.zeros_like(TFuF)
+    rhs[b - 1] = couple(a_up[b - 1], u[b])
+    u[:b] = TFuF - thomas(rhs)
+    return u
+
+
+def _stack_runner(P, impl: str):
+    """`apply_rows`' sweep runner over a held G stack: `sweep` (the CUDA
+    kernel for tensors on the card, the plain loop on the CPU), or under
+    impl="plain" the plain loop, which is what the kernel is held against;
+    the whole stack is passed with the state's lerp tables (slicing G
+    would copy it)."""
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"unknown impl {impl!r}")
+    fn = sweep if impl == "auto" else plain_sweep
+
+    def run(mode, rows, c, carry):
+        rows.copy_(fn(P.G_re, P.G_im, rows, c, carry, mode=mode,
+                      g_lo=P.g_lo, g_w=P.g_w))
+    return run
+
+
 @torch.no_grad()
-def apply_preconditioner(P: SweepingPreconditioner, f: torch.Tensor,
+def apply_preconditioner(P, f: torch.Tensor,
                          impl: str = "auto") -> torch.Tensor:
-    """Algorithm 2.4 analog: one sweep solve u ~= A^{-1} f.
-
-    f has grid shape (L, n); returns the same shape and leaves f untouched
-    (GMRES reuses its Krylov vectors).  The three passes of the algorithm
-    (forward / diagonal / backward) are fused into two: the diagonal step
-    folds into the backward sweep as
-        u_j = G_j (u_j^{fwd} - cn_j * u_{j+1})               (corrected)
-        u_j = u_j^{fwd} - G_j (u_j^{fwd} + cn_j * u_{j+1})   (as-shipped D2)
-    so each application streams the G stack through device memory twice
-    instead of three times.
-
-    `impl`: "auto" runs the two sweeps through `ops.kernels.sweep.sweep`
-    (the CUDA kernel for tensors on the card, the plain loop on the CPU);
-    "plain" forces the plain loop, which is what the kernel is held against.
-    """
-    if impl not in ("auto", "plain"):
-        raise ValueError(f"unknown impl {impl!r}")
-    run = functools.partial(sweep if impl == "auto" else plain_sweep,
-                            g_lo=P.g_lo, g_w=P.g_w)
-    b = P.b
-    L, n = P.grid_shape
-    M_total = L - b                # number of sweep rows
-    u = f.clone()
-
-    # H_F solve + first correction: u_b -= A_{b+1,F} T_F u_F
-    TFuF = _block_thomas_solve(P.TF, P.hf_cs, P.hf_cn, u[:b])
-    u[b] -= P.a_cs[b] * TFuF[b - 1]
-
-    cn_top_zeroed = torch.cat(
-        [P.a_cn[b:-1], torch.zeros_like(P.a_cn[-1:])], dim=0)
-
-    # forward sweep j = b+1..L-1: u_j -= cs_j * (G_{j-1} u_{j-1}); the full
-    # stack is passed with S = M-1 steps (slicing G would copy it)
-    if M_total > 1:
-        u[b + 1:] = run(P.G_re, P.G_im, u[b + 1:], P.a_cs[b + 1:], u[b],
-                        mode="fwd")
-    # fused diagonal + backward sweep, j = L-1..b; the cn_{L-1} term is
-    # absent for the top row (zeroed coupling, zero carry)
-    u_bwd = run(P.G_re, P.G_im, u[b:], cn_top_zeroed, torch.zeros_like(u[-1]),
-                mode="bwd" if P.d2_replace else "bwd_sub")
-
-    # F-block closure: u_F = T_F u_F - T_F (A_{F,b+1} u_b)
-    rhs = torch.zeros_like(TFuF)
-    rhs[b - 1] = P.a_cn[b - 1] * u_bwd[0]
-    uF = TFuF - _block_thomas_solve(P.TF, P.hf_cs, P.hf_cn, rhs)
-    return torch.cat([uF, u_bwd], dim=0)
+    """One sweep solve u ~= A^{-1} f for f of grid shape (L, n), f left
+    untouched (GMRES reuses its Krylov vectors): `apply_preconditioner_multi`
+    on a batch of one.  P is a `SweepingPreconditioner` or a
+    `precond.sweeping9.SweepingPreconditioner9`."""
+    return apply_preconditioner_multi(P, f[None], impl)[0]
 
 
 @torch.no_grad()
-def apply_preconditioner_multi(P: SweepingPreconditioner, F: torch.Tensor,
+def apply_preconditioner_multi(P, F: torch.Tensor,
                                impl: str = "auto") -> torch.Tensor:
-    """Batched-RHS apply: F of shape (B, L, n) -> (B, L, n), F untouched.
+    """Batched-RHS apply of either stencil's state: F of shape (B, L, n) ->
+    (B, L, n), F untouched; `apply_rows` over the held stack.
 
-    Over a dense G stack the whole batch rides ONE stream of G per sweep,
-    in one launch of the sweep kernel whatever B (the wide kernel above
-    four right-hand sides: each loaded piece of G is multiplied into every
-    right-hand side of a block's slice), so B solves cost about one solve
-    of device-memory traffic.  Over a sample-compressed stack the launches
-    carry at most four right-hand sides, and a larger batch reads G once a
-    chunk of four (`ops.kernels.sweep.launch_widths`).  The block-Thomas
-    solves become (n, n) @ (n, B) products.  `impl` as in
-    `apply_preconditioner`.
+    Over a dense G stack with diagonal coupling the whole batch rides ONE
+    stream of G per sweep, in one launch of the sweep kernel whatever B
+    (the wide kernel above four right-hand sides: each loaded piece of G is
+    multiplied into every right-hand side of a block's slice), so B solves
+    cost about one solve of device-memory traffic.  Over a sample-
+    compressed stack, or with tridiagonal coupling, the launches carry at
+    most four right-hand sides, and a larger batch reads G once a chunk of
+    four (`ops.kernels.sweep.launch_widths`).
+
+    `impl`: "auto" runs the two sweeps through `ops.kernels.sweep.sweep`;
+    "plain" forces its plain loop (`_stack_runner`).
     """
-    if impl not in ("auto", "plain"):
-        raise ValueError(f"unknown impl {impl!r}")
-    run = functools.partial(sweep if impl == "auto" else plain_sweep,
-                            g_lo=P.g_lo, g_w=P.g_w)
-    b = P.b
-    L, n = P.grid_shape
-    M_total = L - b
-    # the sweeps take (S, B, n): steps outermost
-    to_sbn = lambda x: x.transpose(0, 1).contiguous()
-    u = F.clone()
+    u = apply_rows(P, rows_outermost(F), _stack_runner(P, impl))
+    return u.transpose(0, 1).contiguous()
 
-    TFuF = _block_thomas_solve_multi(P.TF, P.hf_cs, P.hf_cn, u[:, :b])
-    u[:, b] -= P.a_cs[b] * TFuF[:, b - 1]
 
-    cn_top_zeroed = torch.cat(
-        [P.a_cn[b:-1], torch.zeros_like(P.a_cn[-1:])], dim=0)
-
-    if M_total > 1:
-        u_fwd = run(P.G_re, P.G_im, to_sbn(u[:, b + 1:]), P.a_cs[b + 1:],
-                    u[:, b].contiguous(), mode="fwd")
-        u[:, b + 1:] = u_fwd.transpose(0, 1)
-    u_bwd = run(P.G_re, P.G_im, to_sbn(u[:, b:]), cn_top_zeroed,
-                torch.zeros_like(u[:, -1]),
-                mode="bwd" if P.d2_replace else "bwd_sub").transpose(0, 1)
-
-    rhs = torch.zeros_like(TFuF)
-    rhs[:, b - 1] = P.a_cn[b - 1] * u_bwd[:, 0]
-    uF = TFuF - _block_thomas_solve_multi(P.TF, P.hf_cs, P.hf_cn, rhs)
-    return torch.cat([uF, u_bwd], dim=1)
+def rows_outermost(F: torch.Tensor) -> torch.Tensor:
+    """A fresh (L, B, n) copy of the batch F (B, L, n), for `apply_rows`
+    to overwrite (for B = 1 the transposed view already counts as
+    contiguous, so `contiguous()` would hand back F itself)."""
+    return F.transpose(0, 1).clone(memory_format=torch.contiguous_format)
 
 
 def apply_fixed_rhs(P: SweepingPreconditioner, f_fixed: torch.Tensor):

@@ -17,9 +17,10 @@ around the dense T (no extra O(n^3)), the sweep's coupling applications are
 O(n) tridiagonal products, and the corner inverse G_m is still one dense
 (n, n) block per subgrid.  So the chunk/stride machinery and the G storage
 formats of the 5-point path are reused as they are
-(`factor_corner_inverses(corner_fn=...)`), and the two sweeps of an apply
-run through the same kernel, `ops.kernels.sweep`, in its
-tridiagonal-coupling mode.
+(`factor_corner_inverses(corner_fn=...)`), and so is the apply
+(`sweeping.apply_preconditioner`): the state's coupling rows are (.., 3, n)
+[sub, diag, sup], and their rank selects the tridiagonal products in the
+block-Thomas solve and the sweep kernel's tridiagonal-coupling mode.
 
 PML width: the 9-point subgrid needs a WIDER moved PML than the 5-point
 scheme's b = 12, because the tapered diagonal branch leaves only the 5-point
@@ -42,21 +43,12 @@ from .._device import resolve_device
 from ..core.sparse import Stencil9
 from ..fd import stencil as fd_stencil
 from ..ops.dense import batched_inverse
-from ..ops.kernels.sweep import g_ld, plain_sweep, sweep
+from ..ops.kernels.sweep import g_ld
 from .sweeping import (DEFAULT_SETUP_CHUNK, _add_tridiag_, _check_g_tables,
                        _clamped_chunk, _dense_tridiag, _g_tables,
+                       apply_preconditioner, apply_preconditioner_multi,
                        expand_strided_samples, factor_corner_inverses,
                        sample_positions)
-
-
-def _tridiag_matvec(sub, diag, sup, v):
-    """y = tridiag(sub, diag, sup) @ v for coupling rows (n,) and v
-    (..., n): y_i = sub_i v_{i-1} + diag_i v_i + sup_i v_{i+1}.  sub[0] and
-    sup[-1] (zero by assembly) are not read."""
-    y = diag * v
-    y[..., 1:].addcmul_(sub[1:], v[..., :-1])
-    y[..., :-1].addcmul_(sup[:-1], v[..., 1:])
-    return y
 
 
 def _tridiag_rmatmul(X, sub, diag, sup):
@@ -112,45 +104,6 @@ def _schur_t_stack9(H: Stencil9):
     return torch.stack(list(_schur_steps9(H)), dim=-3)
 
 
-def _minus_tridiag_matvec(out, base, c3, v):
-    """out = base - tridiag(c3) @ v for coupling rows c3 (3, n) as [sub,
-    diag, sup]: three fused multiply-adds written straight into `out`."""
-    sub, diag, sup = c3
-    torch.addcmul(base, diag, v, value=-1, out=out)
-    out[..., 1:].addcmul_(sub[1:], v[..., :-1], value=-1)
-    out[..., :-1].addcmul_(sup[:-1], v[..., 1:], value=-1)
-    return out
-
-
-def _block_thomas_solve9(T, L9, U9, rhs):
-    """Solve the 9-point block-tridiagonal system given its Schur-inverse
-    stack T (L, n, n) and the coupling rows L9 / U9 (L, 3, n) as [sub,
-    diag, sup], for a batch of right-hand sides: rhs (B, L, n) ->
-    (B, L, n).  The scheme of the 5-point `_block_thomas_solve_multi` with
-    tridiagonal products in place of the diagonal scalings; every layer
-    step is one (n, n) @ (n, B) product for the whole batch (a
-    matrix-vector product for a batch of one) and three fused
-    multiply-adds: the loop is bound by the host's launches, so it makes
-    few."""
-    L, B = T.shape[0], rhs.shape[0]
-    if B == 1:
-        mat = lambda l, v: torch.mv(T[l], v[0])[None]
-    else:
-        mat = lambda l, v: (T[l] @ v.T).T
-    y = torch.empty_like(rhs)
-    y[:, 0] = rhs[:, 0]
-    for l in range(1, L):
-        _minus_tridiag_matvec(y[:, l], rhs[:, l], L9[l],
-                              mat(l - 1, y[:, l - 1]))
-    u = torch.empty_like(rhs)
-    u[:, L - 1] = mat(L - 1, y[:, L - 1])
-    tmp = torch.empty_like(rhs[:, 0])
-    for l in range(L - 2, -1, -1):
-        u[:, l] = mat(l, _minus_tridiag_matvec(tmp, y[:, l], U9[l],
-                                               u[:, l + 1]))
-    return u
-
-
 @dataclasses.dataclass(frozen=True)
 class SweepingPreconditioner9:
     """Factored 9-point moving-PML sweeping state.
@@ -189,17 +142,24 @@ class SweepingPreconditioner9:
     def grid_shape(self):
         return (self.a_l.shape[0], self.a_l.shape[-1])
 
+    @property
+    def couplings(self):
+        """(hf_lo, hf_up, a_lo, a_up) as `sweeping.apply_rows` takes
+        them."""
+        return self.hf_l, self.hf_u, self.a_l, self.a_u
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """LinearOperator-style matvec on a flat (N,) vector."""
         L, n = self.grid_shape
-        return apply_preconditioner9(self, x.reshape(L, n)).reshape(-1)
+        return apply_preconditioner(self, x.reshape(L, n)).reshape(-1)
 
     def apply_multi(self, X: torch.Tensor) -> torch.Tensor:
         """The same for a batch of flat vectors, (B, N) -> (B, N): the whole
-        batch rides one stream of G per sweep."""
+        batch rides one stream of G per sweep (in launches of at most four
+        right-hand sides, `sweeping.apply_preconditioner_multi`)."""
         L, n = self.grid_shape
         B = X.shape[0]
-        return apply_preconditioner9_multi(
+        return apply_preconditioner_multi(
             self, X.reshape(B, L, n)).reshape(B, L * n)
 
 
@@ -367,63 +327,3 @@ def setup_preconditioner9_assembling(A: Stencil9, b: int, const, eta, omega,
                                         g_dtype=g_dtype,
                                         setup_chunk=setup_chunk)
     return _with_hf9(A, b, G_re, G_im, d2_replace=d2_replace)
-
-
-@torch.no_grad()
-def apply_preconditioner9(P: SweepingPreconditioner9, f: torch.Tensor,
-                          impl: str = "auto") -> torch.Tensor:
-    """One 9-point sweep solve u ~= A9^{-1} f for f of grid shape (L, n):
-    `apply_preconditioner9_multi` on a batch of one."""
-    return apply_preconditioner9_multi(P, f[None], impl)[0]
-
-
-@torch.no_grad()
-def apply_preconditioner9_multi(P: SweepingPreconditioner9, F: torch.Tensor,
-                                impl: str = "auto") -> torch.Tensor:
-    """Batched-RHS 9-point apply: F of shape (B, L, n) -> (B, L, n), F
-    untouched.  Algorithm 2.4 with tridiagonal coupling applications: the
-    fused two-pass structure (and the corrected / as-shipped D2 switch) of
-    the 5-point `apply_preconditioner_multi`, both sweeps given the coupling
-    rows as (S, 3, n).  The whole batch rides ONE stream of the G stack per
-    sweep.
-
-    `impl`: "auto" runs the two sweeps through `ops.kernels.sweep.sweep`
-    (the CUDA kernel for tensors on the card, the plain loop on the CPU);
-    "plain" forces the plain loop, which is what the kernel is held against.
-    """
-    if impl not in ("auto", "plain"):
-        raise ValueError(f"unknown impl {impl!r}")
-    run = functools.partial(sweep if impl == "auto" else plain_sweep,
-                            g_lo=P.g_lo, g_w=P.g_w)
-    b = P.b
-    L, n = P.grid_shape
-    M_total = L - b
-    thomas = lambda r: _block_thomas_solve9(P.TF, P.hf_l, P.hf_u, r)
-    # the sweeps take (S, B, n): steps outermost
-    to_sbn = lambda x: x.transpose(0, 1).contiguous()
-    u = F.clone()
-
-    # H_F solve + first correction: u_b -= L_b @ (T_F u_F)[b-1]
-    TFuF = thomas(u[:, :b])
-    u[:, b] -= _tridiag_matvec(*P.a_l[b], TFuF[:, b - 1])
-
-    # top-row upper coupling zeroed (no layer above)
-    a_u_top0 = torch.cat([P.a_u[b:-1], torch.zeros_like(P.a_u[-1:])], dim=0)
-
-    # forward sweep j = b+1..L-1: u_j -= L_j @ (G_{j-1} u_{j-1})
-    if M_total > 1:
-        u_fwd = run(P.G_re, P.G_im, to_sbn(u[:, b + 1:]), P.a_l[b + 1:],
-                    u[:, b].contiguous(), mode="fwd")
-        u[:, b + 1:] = u_fwd.transpose(0, 1)
-    # fused diagonal + backward sweep:
-    #   corrected:  u_j = G_j (u_j - U_j u_{j+1})
-    #   as-shipped: u_j = u_j - G_j (u_j + U_j u_{j+1})
-    u_bwd = run(P.G_re, P.G_im, to_sbn(u[:, b:]), a_u_top0,
-                torch.zeros_like(u[:, -1]),
-                mode="bwd" if P.d2_replace else "bwd_sub").transpose(0, 1)
-
-    # F-block closure: u_F = T_F u_F - T_F (U_{b-1}-coupling of u_b)
-    rhs = torch.zeros_like(TFuF)
-    rhs[:, b - 1] = _tridiag_matvec(*P.a_u[b - 1], u_bwd[:, 0])
-    uF = TFuF - thomas(rhs)
-    return torch.cat([uF, u_bwd], dim=1)

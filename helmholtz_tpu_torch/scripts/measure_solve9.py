@@ -128,7 +128,7 @@ def main():
     f9 = driver._mass_filter9_stage(f_grid.to(cd), cfg.wave_num, cfg.const,
                                     2.0, n=n, b=b)
     F = f9[None]
-    apply_ms = event_ms(lambda: sweeping9.apply_preconditioner9_multi(P, F))
+    apply_ms = event_ms(lambda: sweeping.apply_preconditioner_multi(P, F))
     u = F.transpose(0, 1).contiguous()
     zero = torch.zeros_like(u[-1])
     a_u_top0 = torch.cat([P.a_u[b:-1], torch.zeros_like(P.a_u[-1:])], dim=0)
@@ -136,8 +136,8 @@ def main():
         P.G_re, P.G_im, u[b + 1:], P.a_l[b + 1:], u[b], mode="fwd"))
     bwd_ms = event_ms(lambda: k2.sweep(
         P.G_re, P.G_im, u[b:], a_u_top0, zero, mode="bwd"))
-    thomas_ms = event_ms(lambda: sweeping9._block_thomas_solve9(
-        P.TF, P.hf_l, P.hf_u, F[:, :b]))
+    thomas_ms = event_ms(lambda: sweeping.block_thomas_solve(
+        P.TF, P.hf_l, P.hf_u, u[:b]))
     say("apply", ms=apply_ms, sweep_fwd_ms=fwd_ms, sweep_bwd_ms=bwd_ms,
         thomas_solve_ms=thomas_ms, thomas_solves=2,
         rest_ms=apply_ms - fwd_ms - bwd_ms - 2 * thomas_ms)

@@ -30,7 +30,6 @@ from helmholtz_tpu_torch.dist import launch, make_mesh
 from helmholtz_tpu_torch.dist import sweep as dsweep
 from helmholtz_tpu_torch.ops import spmv as tspmv
 from helmholtz_tpu_torch.precond import sweeping as tsweep
-from helmholtz_tpu_torch.precond import sweeping9 as tsweep9
 
 import helmholtz_tpu_torch as ht
 import torch_dist_ranks
@@ -108,7 +107,7 @@ def sides():
             P9 = jsweep9.setup_preconditioner9(jA9, jhm9, B)
             S = _dist_state9(P9)
             fn, nine, g = jdsweep.dist_apply_preconditioner9, True, None
-            single[name] = tsweep9.apply_preconditioner9(
+            single[name] = tsweep.apply_preconditioner(
                 precond9_to_torch(P9, N), torch.from_numpy(F)).numpy()
         else:
             key = "dense" if name == "batched" else name

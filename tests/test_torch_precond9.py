@@ -75,7 +75,8 @@ def test_tridiagonal_products_match_dense():
     T = torch.diag(dia) + torch.diag(sub[1:], -1) + torch.diag(sup[:-1], 1)
     _close(tsweep9._tridiag_lmatmul(sub, dia, sup, X), T @ X, 1e-13)
     _close(tsweep9._tridiag_rmatmul(X, sub, dia, sup), X @ T, 1e-13)
-    _close(tsweep9._tridiag_matvec(sub, dia, sup, X[0]), X[0] @ T.T, 1e-13)
+    _close(tsweep.couple(torch.stack([sub, dia, sup]), X[0]), X[0] @ T.T,
+           1e-13)
 
 
 @pytest.mark.parametrize("layout", ["dense", "strided", "sampled", "compress",
@@ -232,10 +233,10 @@ def test_apply_preconditioner9_matches_jax(sides, factored, d2_replace,
     ref = np.asarray(jsweep9.apply_preconditioner9(P_j, jnp.asarray(f),
                                                    impl="xla"))
     for P, what in ((P_t, "own setup"), (P_carried, "carried across")):
-        got = tsweep9.apply_preconditioner9(P, torch.from_numpy(f))
+        got = tsweep.apply_preconditioner(P, torch.from_numpy(f))
         _close(got, ref, 1e-10, what)
-        plain = tsweep9.apply_preconditioner9(P, torch.from_numpy(f),
-                                              impl="plain")
+        plain = tsweep.apply_preconditioner(P, torch.from_numpy(f),
+                                            impl="plain")
         np.testing.assert_array_equal(to_np(got), to_np(plain))
     flat = P_t(torch.from_numpy(f.reshape(-1)))
     _close(flat, ref.reshape(-1), 1e-10, "flat call")
@@ -244,13 +245,13 @@ def test_apply_preconditioner9_matches_jax(sides, factored, d2_replace,
 def test_apply_preconditioner9_multi_matches_single(factored):
     _, P_t = factored["lerp"]
     F = torch.from_numpy(random_grid(21, (3, N, N)))
-    got = tsweep9.apply_preconditioner9_multi(P_t, F)
+    got = tsweep.apply_preconditioner_multi(P_t, F)
     for k in range(3):
-        _close(got[k], tsweep9.apply_preconditioner9(P_t, F[k]), 1e-12,
+        _close(got[k], tsweep.apply_preconditioner(P_t, F[k]), 1e-12,
                f"member {k}")
     _close(P_t.apply_multi(F.reshape(3, -1)), got.reshape(3, -1), 1e-14)
     with pytest.raises(ValueError, match="impl"):
-        tsweep9.apply_preconditioner9(P_t, F[0], impl="pallas")
+        tsweep.apply_preconditioner(P_t, F[0], impl="pallas")
 
 
 def test_preconditioner_from_samples9_matches_jax(sides, factored):
